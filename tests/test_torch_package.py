@@ -1,0 +1,67 @@
+"""The port stands alone: importing it loads no JAX and nothing of the JAX
+package, its sources and chip_smoke.py import neither, and chip_smoke.py
+refuses to run without a CUDA device instead of falling back to the CPU."""
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = re.compile(r"^\s*(import jax|from jax|import repro([ .,]|$)|from repro[ .])",
+                       re.MULTILINE)
+
+
+def _modules():
+    return sorted(".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+                  .removesuffix(".__init__") for p in PORT.rglob("*.py"))
+
+
+def test_import_loads_no_jax_and_no_reference():
+    mods = _modules()
+    assert "repro_torch.kernels.conv2d.ops" in mods and "repro_torch.models.cnn" in mods
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+            "             or m == 'jaxlib' or m.startswith('jaxlib.')\n"
+            "             or m == 'repro' or m.startswith('repro.'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
+@pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT))
+                                        for p in [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]))
+def test_sources_import_no_jax(path):
+    assert not FORBIDDEN.findall((ROOT / path).read_text()), path
+
+
+def _run_smoke(script, cwd):
+    # No visible card: the run must stop, whatever the machine holds.
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env.pop("PYTHONPATH", None)
+    return subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_chip_smoke_refuses_without_cuda():
+    r = _run_smoke(ROOT / "chip_smoke.py", ROOT)
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
+    assert "CUDA" in r.stderr
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    r = _run_smoke(tmp_path / "chip_smoke.py", tmp_path)
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
