@@ -1,0 +1,70 @@
+"""Checked entry points of the flash-attention kernel.
+
+The counterparts of ``repro/kernels/flash_attention/ops.py``:
+``flash_attention`` takes the model-native q (B, S, H, hd) and k, v
+(B, Sk, KV, hd); ``attn_fn`` has the signature of the hook of
+``repro_torch.models.layers.gqa_attention`` and returns (B, S, H*hd). The
+causal mask aligns the queries to the end of the key timeline (offset
+Sk - S), as ``attention_ref`` does; the Pallas kernel starts them at 0,
+which is the same when S = Sk. A CUDA tensor launches the CUDA kernel (or
+raises); a CPU tensor takes the plain version ``attention_ref``.
+``flash_attention.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from .flash_attention import DTYPE_CODES, flash_attention_bshd
+from .ref import attention_ref
+
+_MAX_HD = 256        # the kernel's widest head (shared-memory tiles of 64 rows)
+_MAX_GRID_Y = 65535  # CUDA's limit on grid y (B * H)
+
+
+def _check(q, k, v, window) -> None:
+    if not all(isinstance(t, torch.Tensor) for t in (q, k, v)):
+        raise TypeError("flash_attention takes three tensors")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention takes q (B, S, H, hd) and k, v (B, Sk, KV, hd); "
+                         f"got shapes {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, s, h, hd = q.shape
+    if k.shape[0] != b or k.shape[3] != hd or h % k.shape[2]:
+        raise ValueError(f"q {tuple(q.shape)} and k, v {tuple(k.shape)} differ in batch or "
+                         f"head dim, or H is not a multiple of KV")
+    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention takes float32 or bfloat16, one for q, k and v; "
+                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device) or q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention takes q, k, v on one CPU or CUDA device; "
+                         f"got {q.device}, {k.device}, {v.device}")
+    if q.numel() == 0 or k.numel() == 0:
+        raise ValueError("flash_attention takes non-empty tensors")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention takes contiguous tensors")
+    if hd > _MAX_HD or b * h > _MAX_GRID_Y:
+        raise ValueError(f"head dim {hd} or B*H {b * h} exceeds the kernel's limits "
+                         f"({_MAX_HD}, {_MAX_GRID_Y})")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be None or positive; got {window}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                    window: int | None = None) -> torch.Tensor:
+    """q (B, S, H, hd); k, v (B, Sk, KV, hd) -> (B, S, H, hd)."""
+    _check(q, k, v, window)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window)
+    out = torch.empty_like(q)
+    flash_attention_bshd(q, k, v, out, causal=causal, window=window)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
+def attn_fn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+            window: int | None = None) -> torch.Tensor:
+    """Adapter matching gqa_attention's ``attn_fn`` hook: returns (B, S, H*hd)."""
+    b, s, h, hd = q.shape
+    return flash_attention(q, k, v, causal=causal, window=window).reshape(b, s, h * hd)

@@ -1,0 +1,55 @@
+"""Checked entry point of the tiled matrix product.
+
+The counterpart of ``repro/kernels/matmul/ops.py::matmul``: a general
+(M, K) @ (K, N) with an fp32 accumulator, cast to ``out_dtype or a.dtype``.
+There is no padding to block multiples: the kernel checks bounds. A CUDA
+tensor launches the CUDA kernel (or raises); a CPU tensor takes the plain
+version ``matmul_ref``. ``matmul.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from .matmul import DTYPE_CODES, matmul_tiled
+from .ref import matmul_ref
+
+_MAX_M = 65535 * 128  # CUDA's limit on grid y, in 128-row tiles
+
+
+def _check(a, b, out_dtype) -> None:
+    if not (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)):
+        raise TypeError("matmul takes two tensors")
+    if a.dim() != 2 or b.dim() != 2:
+        raise ValueError(f"matmul takes a (M, K) and b (K, N); "
+                         f"got shapes {tuple(a.shape)} and {tuple(b.shape)}")
+    if a.shape[1] != b.shape[0]:
+        raise ValueError(f"inner dimensions differ: a has K = {a.shape[1]}, "
+                         f"b has K = {b.shape[0]}")
+    if a.dtype not in DTYPE_CODES or b.dtype != a.dtype:
+        raise ValueError(f"matmul takes float32 or bfloat16, the same for a and b; "
+                         f"got {a.dtype} and {b.dtype}")
+    if out_dtype is not None and out_dtype not in DTYPE_CODES:
+        raise ValueError(f"matmul writes float32 or bfloat16; got out_dtype={out_dtype}")
+    if a.device != b.device or a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"matmul takes a and b on one CPU or CUDA device; "
+                         f"got {a.device} and {b.device}")
+    if a.numel() == 0 or b.numel() == 0:
+        raise ValueError("matmul takes non-empty tensors")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("matmul takes contiguous tensors")
+    if a.shape[0] > _MAX_M or max(a.shape[1], b.shape[1]) >= 2**31:
+        raise ValueError(f"shapes {tuple(a.shape)} @ {tuple(b.shape)} exceed the kernel's grid")
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
+    """a (M, K) @ b (K, N) -> (M, N) in ``out_dtype or a.dtype``, fp32 sums."""
+    _check(a, b, out_dtype)
+    if a.device.type == "cpu":
+        return matmul_ref(a, b, out_dtype=out_dtype)
+    out = torch.empty((a.shape[0], b.shape[1]), dtype=out_dtype or a.dtype, device=a.device)
+    matmul_tiled(a, b, out)
+    matmul.launches += 1
+    return out
+
+
+matmul.launches = 0

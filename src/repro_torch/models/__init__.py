@@ -1,1 +1,2 @@
-"""Models of the port: the paper's VGG CNNs and their hybrid execution plan."""
+"""Models of the port: the paper's VGG CNNs with their hybrid execution plan,
+and the dense decoder-only LM with its serving entry points."""

@@ -1,0 +1,238 @@
+"""Building blocks of the dense LM (pure functions, explicit params).
+
+The counterpart of ``repro/models/layers.py``, function for function, with
+the same cast points: weights are cast to the compute dtype at each
+product, norms and RoPE compute in fp32 and cast back, and the plain
+attention takes fp32 scores and casts the probabilities to the compute
+dtype before the PV product. Params are nested dicts of tensors.
+
+``use_kernel=True`` routes each dense product through the hand-written
+matmul kernel (``repro_torch.kernels.matmul``) and each RMSNorm through the
+RMSNorm kernel; ``use_kernel=False`` takes their plain versions, the oracle
+of tests and the smoke run. Attention takes the kernel through the
+``attn_fn`` hook, as in the JAX package. ``constrain`` (activation sharding
+in the JAX package) is the identity on one card and has no counterpart.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.matmul.ops import matmul
+from repro_torch.kernels.matmul.ref import matmul_ref
+from repro_torch.kernels.rmsnorm.ops import rmsnorm
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+# ---------------------------------------------------------------------------
+# Initializers
+# ---------------------------------------------------------------------------
+
+
+def _randn(generator: torch.Generator, shape, device) -> torch.Tensor:
+    return torch.randn(shape, generator=generator, device=generator.device,
+                       dtype=torch.float32).to(device)
+
+
+def dense_init(generator: torch.Generator, d_in: int, d_out: int, dtype=torch.float32, *,
+               device="cpu") -> torch.Tensor:
+    return (_randn(generator, (d_in, d_out), device) * (1.0 / math.sqrt(d_in))).to(dtype)
+
+
+def embed_init(generator: torch.Generator, vocab: int, d: int, dtype=torch.float32, *,
+               device="cpu") -> torch.Tensor:
+    return (_randn(generator, (vocab, d), device) * 0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Products and norms: the kernel or its plain version
+# ---------------------------------------------------------------------------
+
+
+def linear(x: torch.Tensor, w: torch.Tensor, use_kernel: bool = False) -> torch.Tensor:
+    """``x @ w`` for x (..., K) and w (K, N), w cast to x's dtype, fp32 sums."""
+    w = w.to(x.dtype).contiguous()
+    x2 = x.reshape(-1, x.shape[-1])
+    y = matmul(x2, w) if use_kernel else matmul_ref(x2, w)
+    return y.reshape(*x.shape[:-1], w.shape[1])
+
+
+def init_rmsnorm(d: int, dtype=torch.float32, *, device="cpu"):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rms_norm(x: torch.Tensor, params, eps: float = 1e-6, *, use_kernel: bool = False):
+    if use_kernel:
+        return rmsnorm(x, params["scale"], eps=eps)
+    return rmsnorm_ref(x, params["scale"], eps)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float = 10000.0, *, device="cpu") -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S) or (S,)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, device=x.device)  # (hd/2,)
+    ang = positions.float()[..., None] * freqs  # (..., S, hd/2)
+    if ang.dim() == 2:  # (S, hd/2) -> broadcast over batch
+        ang = ang[None]
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA, optional sliding window)
+# ---------------------------------------------------------------------------
+
+
+def init_attention(generator: torch.Generator, d_model: int, n_heads: int, n_kv: int,
+                   head_dim: int | None = None, dtype=torch.float32, *, device="cpu"):
+    hd = head_dim or d_model // n_heads
+    return {
+        "wq": dense_init(generator, d_model, n_heads * hd, dtype, device=device),
+        "wk": dense_init(generator, d_model, n_kv * hd, dtype, device=device),
+        "wv": dense_init(generator, d_model, n_kv * hd, dtype, device=device),
+        "wo": dense_init(generator, n_heads * hd, d_model, dtype, device=device),
+    }
+
+
+def _causal_mask(s_q: int, s_k: int, window: int | None = None, offset: int = 0, *,
+                 device="cpu") -> torch.Tensor:
+    """(s_q, s_k) additive mask. ``offset`` = start position of the queries
+    within the key timeline (for decode: offset = s_k - s_q)."""
+    qi = torch.arange(s_q, device=device)[:, None] + offset
+    kj = torch.arange(s_k, device=device)[None, :]
+    ok = kj <= qi
+    if window is not None:
+        ok &= kj > qi - window
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return torch.where(ok, zero, float("-inf"))
+
+
+def gqa_attention(x, params, n_heads: int, n_kv: int, *, rope: bool = True,
+                  rope_theta: float = 10000.0, window: int | None = None,
+                  causal: bool = True, positions=None, kv_override=None, attn_fn=None,
+                  use_kernel: bool = False):
+    """Full-sequence GQA self attention (prefill path).
+
+    ``kv_override`` supplies external (k, v) for cross attention.
+    ``attn_fn`` optionally replaces the core softmax(QK^T)V computation
+    (e.g. with ``repro_torch.kernels.flash_attention.ops.attn_fn``).
+    """
+    b, s, d = x.shape
+    hd = params["wq"].shape[1] // n_heads
+    cd = x.dtype
+
+    q = linear(x, params["wq"], use_kernel).reshape(b, s, n_heads, hd)
+    if kv_override is None:
+        k = linear(x, params["wk"], use_kernel).reshape(b, s, n_kv, hd)
+        v = linear(x, params["wv"], use_kernel).reshape(b, s, n_kv, hd)
+    else:
+        k, v = kv_override
+    s_k = k.shape[1]
+
+    if rope:
+        pos = positions if positions is not None else torch.arange(s, device=x.device)
+        q = apply_rope(q, pos, rope_theta)
+        if kv_override is None:
+            k = apply_rope(k, pos, rope_theta)
+
+    if attn_fn is not None:
+        out = attn_fn(q, k, v, causal=causal, window=window)
+    else:
+        g = n_heads // n_kv
+        qg = q.reshape(b, s, n_kv, g, hd)
+        scores = torch.einsum("bsngh,btnh->bngst", qg, k).float()
+        scores = scores * (1.0 / math.sqrt(hd))
+        if causal:
+            scores = scores + _causal_mask(s, s_k, window, offset=s_k - s,
+                                           device=x.device)[None, None, None]
+        probs = torch.softmax(scores, dim=-1).to(cd)
+        out = torch.einsum("bngst,btnh->bsngh", probs, v).reshape(b, s, n_heads * hd)
+    return linear(out.reshape(b, s, -1), params["wo"], use_kernel)
+
+
+def gqa_decode_attention(x, params, n_heads: int, n_kv: int, k_cache, v_cache, write_pos, *,
+                         rope_pos=None, valid_upto=None, rope: bool = True,
+                         rope_theta: float = 10000.0, use_kernel: bool = False):
+    """One-token decode: x (B, 1, D); caches (B, S_slots, n_kv, hd).
+
+    ``write_pos`` (B,) — cache slot the new KV is written to (for a
+    sliding-window ring buffer this is ``pos % slots``).
+    ``rope_pos`` (B,) — absolute position for RoPE (defaults to write_pos).
+    ``valid_upto`` (B,) — highest valid slot index (defaults to write_pos;
+    a full ring buffer passes slots-1 so every slot participates).
+    Returns (out, new_k_cache, new_v_cache); the caches passed in are not
+    changed. The attention over the cache is plain PyTorch, as in the JAX
+    package, where it runs outside any kernel.
+    """
+    b, one, d = x.shape
+    hd = params["wq"].shape[1] // n_heads
+    cd = x.dtype
+    s_slots = k_cache.shape[1]
+    rope_pos = write_pos if rope_pos is None else rope_pos
+    valid_upto = write_pos if valid_upto is None else valid_upto
+
+    q = linear(x, params["wq"], use_kernel).reshape(b, 1, n_heads, hd)
+    k = linear(x, params["wk"], use_kernel).reshape(b, 1, n_kv, hd)
+    v = linear(x, params["wv"], use_kernel).reshape(b, 1, n_kv, hd)
+    if rope:
+        q = apply_rope(q, rope_pos[:, None], rope_theta)
+        k = apply_rope(k, rope_pos[:, None], rope_theta)
+
+    # Write new kv at write_pos (one-hot blend, as the reference keeps shapes static).
+    onehot = F.one_hot(write_pos.long(), s_slots).to(cd)  # (B, S_slots)
+    k_cache = k_cache * (1 - onehot)[..., None, None] + onehot[..., None, None] * k
+    v_cache = v_cache * (1 - onehot)[..., None, None] + onehot[..., None, None] * v
+
+    g = n_heads // n_kv
+    qg = q.reshape(b, n_kv, g, hd)
+    # einsum takes one dtype; promote as jnp.einsum does for a cache in another one
+    dk, dv = torch.promote_types(cd, k_cache.dtype), torch.promote_types(cd, v_cache.dtype)
+    scores = torch.einsum("bngh,btnh->bngt", qg.to(dk), k_cache.to(dk)).float()
+    scores = scores * (1.0 / math.sqrt(hd))
+    t = torch.arange(s_slots, device=x.device)[None, None, None, :]
+    ok = t <= valid_upto[:, None, None, None]
+    scores = scores.masked_fill(~ok, float("-inf"))
+    probs = torch.softmax(scores, dim=-1).to(cd)
+    out = torch.einsum("bngt,btnh->bngh", probs.to(dv), v_cache.to(dv))
+    out = out.reshape(b, 1, n_heads * hd)
+    return linear(out, params["wo"], use_kernel), k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(generator: torch.Generator, d_model: int, d_ff: int, gated: bool,
+             dtype=torch.float32, *, device="cpu"):
+    p = {"w_up": dense_init(generator, d_model, d_ff, dtype, device=device),
+         "w_down": dense_init(generator, d_ff, d_model, dtype, device=device)}
+    if gated:
+        p["w_gate"] = dense_init(generator, d_model, d_ff, dtype, device=device)
+    return p
+
+
+def mlp(x, params, activation: str = "silu", *, use_kernel: bool = False):
+    h = linear(x, params["w_up"], use_kernel)
+    if activation == "relu2":        # Nemotron squared ReLU
+        h = torch.square(torch.relu(h))
+    elif activation == "gelu":       # jax.nn.gelu's default is the tanh form
+        h = F.gelu(h, approximate="tanh")
+    else:
+        h = F.silu(h)
+    if "w_gate" in params:
+        h = h * linear(x, params["w_gate"], use_kernel)
+    return linear(h, params["w_down"], use_kernel)

@@ -1,0 +1,208 @@
+"""The port's dense LM (repro_torch.models: layers, transformer, api) against
+the JAX package's, at the reduced configs of StarCoder2-3B and
+H2O-Danube-3-4B: the JAX initialiser's weights are carried across with
+``params_from_jax`` and both packages get the same numpy tokens. On the
+CPU every kernel of the port takes its plain version; the JAX side runs
+its Pallas flash attention in interpret mode through the ``attn_fn`` hook
+where the port's ``use_kernel=True`` route takes the flash kernel."""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.kernels.flash_attention.ops import attn_fn as jax_attn_fn  # noqa: E402
+from repro.models import api as jax_api  # noqa: E402
+from repro.models import transformer as jax_transformer  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
+from repro_torch.models import api, layers, transformer  # noqa: E402
+
+ARCHS = ["starcoder2-3b", "h2o-danube-3-4b"]
+DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # normalised: max|d| / max|ref|
+SEQ = 96  # past Danube's reduced window of 64
+
+
+@pytest.fixture(scope="module")
+def models():
+    cache = {}
+
+    def get(arch):
+        if arch not in cache:
+            jcfg = jax_get_config(arch).reduced()
+            jparams = jax_api.init_params(jax.random.key(0), jcfg)
+            tparams = transformer.params_from_jax(jax.tree.map(np.asarray, jparams),
+                                                  device="cpu")
+            cache[arch] = (jcfg, jparams, get_config(arch).reduced(), tparams)
+        return cache[arch]
+
+    return get
+
+
+def _err(out, ref) -> float:
+    out, ref = np.asarray(out, np.float32), np.asarray(ref, np.float32)
+    assert np.isfinite(out).all()
+    return float(np.abs(out - ref).max() / np.abs(ref).max())
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("reduced", [False, True])
+def test_config_copy_matches_reference(arch, reduced):
+    ours, ref = get_config(arch), jax_get_config(arch)
+    if reduced:
+        ours, ref = ours.reduced(), ref.reduced()
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    assert (ours.head_dim, ours.param_count(), ours.sub_quadratic) == \
+        (ref.head_dim, ref.param_count(), ref.sub_quadratic)
+
+
+def test_unported_arch_names_its_roadmap_item():
+    from repro.configs import ARCH_IDS as JAX_ARCH_IDS
+    for arch in JAX_ARCH_IDS:
+        if arch in ARCH_IDS:
+            continue
+        with pytest.raises(KeyError, match="ROADMAP.md queue 1 item"):
+            get_config(arch)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_params_from_jax(arch, models):
+    jcfg, jparams, cfg, tparams = models(arch)
+    flat = jax.tree_util.tree_flatten_with_path(jparams)[0]
+    assert len(flat) == len(jax.tree.leaves(tparams))
+    for path, leaf in flat:
+        t = tparams
+        for key in path:
+            t = t[key.key]
+        assert t.shape == leaf.shape and t.dtype == torch.float32
+        np.testing.assert_array_equal(t.numpy(), np.asarray(leaf))
+    assert tparams["blocks"]["attn"]["wq"].shape[0] == cfg.n_layers
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_prefill_matches_jax(arch, name, use_kernel, models):
+    jcfg, jparams, cfg, tparams = models(arch)
+    jdt, tdt = DTYPES[name]
+    toks = np.random.default_rng(3).integers(0, cfg.vocab, (2, SEQ))
+    ref = jax_transformer.forward(jparams, jcfg, jnp.asarray(toks), compute_dtype=jdt,
+                                  remat="none", attn_fn=jax_attn_fn if use_kernel else None)
+    out = api.prefill_logits(tparams, cfg, {"tokens": torch.from_numpy(toks)},
+                             compute_dtype=tdt, use_kernel=use_kernel)
+    assert out.dtype == torch.float32 and out.shape == (2, SEQ, cfg.vocab)
+    assert _err(out.numpy(), ref) <= TOL[name]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_decode_matches_jax_tick_by_tick(arch, name, models):
+    """80 ticks, so that Danube's 64-slot ring buffer wraps; logits and both
+    caches after every tick."""
+    jcfg, jparams, cfg, tparams = models(arch)
+    jdt, tdt = DTYPES[name]
+    ticks, batch = 80, 2
+    toks = np.random.default_rng(4).integers(0, cfg.vocab, (batch, ticks))
+    jcache = jax_api.init_cache(jcfg, batch, 96, dtype=jdt)
+    tcache = api.init_cache(cfg, batch, 96, tdt, device="cpu")
+    assert tcache["k"].shape == jcache["k"].shape
+    jstep = jax.jit(lambda c, t, p: jax_api.decode_step(jparams, jcfg, c, t, p,
+                                                        compute_dtype=jdt))
+    for t in range(ticks):
+        pos = np.full((batch,), t, np.int32)
+        jlogits, jcache = jstep(jcache, jnp.asarray(toks[:, t:t + 1]), jnp.asarray(pos))
+        with torch.inference_mode():
+            logits, tcache = api.decode_step(tparams, cfg, tcache,
+                                             torch.from_numpy(toks[:, t:t + 1]),
+                                             torch.from_numpy(pos).long(), compute_dtype=tdt)
+        assert _err(logits.numpy(), jlogits) <= TOL[name], t
+        for key in ("k", "v"):
+            assert tcache[key].dtype == tdt
+            assert _err(tcache[key].float().numpy(), jcache[key]) <= TOL[name], (t, key)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_decode_matches_prefill_last_token(arch, use_kernel, models):
+    """tests/test_arch_smoke.py::test_decode_matches_prefill_last_token, on the port."""
+    _, _, cfg, tparams = models(arch)
+    seq = 8
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (1, seq)))
+    full = api.prefill_logits(tparams, cfg, {"tokens": toks}, compute_dtype=torch.float32,
+                              use_kernel=use_kernel)
+    cache = api.init_cache(cfg, 1, seq, torch.float32, device="cpu")
+    logits = None
+    for t in range(seq):
+        logits, cache = api.decode_step(tparams, cfg, cache, toks[:, t:t + 1],
+                                        torch.tensor([t]), compute_dtype=torch.float32,
+                                        use_kernel=use_kernel)
+    torch.testing.assert_close(logits, full[:, -1], atol=2e-2, rtol=2e-2)
+
+
+def test_default_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    cfg = get_config("starcoder2-3b").reduced()
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        transformer.init_lm(cfg, generator=gen)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.init_params(cfg, generator=gen)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        transformer.init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        transformer.params_from_jax({"w": np.zeros(2, np.float32)})
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_init_lm_matches_reference_tree(arch, models):
+    """The port's own initialiser gives the JAX tree's structure, shapes and
+    scales (the values differ: torch.Generator is not jax.random)."""
+    jcfg, jparams, cfg, tparams = models(arch)
+    ours = transformer.init_lm(cfg, generator=torch.Generator().manual_seed(0), device="cpu",
+                               dtype=torch.bfloat16)
+    shapes = lambda tree: jax.tree.map(lambda a: tuple(a.shape), tree)  # noqa: E731
+    assert shapes(ours) == shapes(jparams)
+    assert all(t.dtype == torch.bfloat16 for t in jax.tree.leaves(ours))
+    wq = ours["blocks"]["attn"]["wq"].float()
+    assert abs(wq.std().item() * cfg.d_model ** 0.5 - 1.0) < 0.05
+    assert abs(ours["embed"].float().std().item() / 0.02 - 1.0) < 0.05
+
+
+def test_gelu_is_the_tanh_form():
+    """jax.nn.gelu defaults to approximate=True; the port's mlp matches it,
+    not the exact (erf) GELU."""
+    x = torch.linspace(-4, 4, 101)
+    params = {"w_up": torch.eye(101), "w_down": torch.eye(101)}
+    out = layers.mlp(x[None], params, "gelu")[0]
+    ref = np.asarray(jax.nn.gelu(jnp.asarray(x.numpy())))
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-6, rtol=1e-6)
+    assert (out - torch.nn.functional.gelu(x)).abs().max() > 1e-4
+
+
+@pytest.mark.parametrize("family_arch", ["xlstm-350m", "zamba2-2.7b", "kimi-k2-1t-a32b",
+                                         "whisper-base", "llava-next-34b"])
+def test_other_families_not_ported(family_arch):
+    cfg = jax_get_config(family_arch).reduced()
+    # the JAX config dataclass is another class; rebuild it as the port's
+    from repro_torch.configs.base import ArchConfig
+    fields = dataclasses.asdict(cfg)
+    fields["moe"] = fields["ssm"] = None
+    ours = ArchConfig(**fields)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
+        api.prefill_logits({}, ours, {"tokens": torch.zeros((1, 2), dtype=torch.long)})
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
+        api.init_cache(ours, 1, 4, device="cpu")
+
+
+def test_serve_cli_on_cpu(capsys):
+    from repro_torch.launch import serve
+    serve.main(["--arch", "h2o-danube-3-4b", "--batch", "2", "--prompt-len", "3", "--gen", "2",
+                "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "h2o-danube-3-4b: served 2 seqs x (3 prompt + 2 generated) = 10 steps" in out
+    assert "seq1:" in out

@@ -26,6 +26,10 @@ def _modules():
 def test_import_loads_no_jax_and_no_reference():
     mods = _modules()
     assert "repro_torch.kernels.conv2d.ops" in mods and "repro_torch.models.cnn" in mods
+    assert {"repro_torch.configs", "repro_torch.kernels.matmul.ops",
+            "repro_torch.kernels.rmsnorm.ops", "repro_torch.kernels.flash_attention.ops",
+            "repro_torch.models.transformer", "repro_torch.models.api",
+            "repro_torch.serve.scheduler", "repro_torch.launch.serve"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -65,3 +69,33 @@ def test_chip_smoke_alone_fails(tmp_path):
     r = _run_smoke(tmp_path / "chip_smoke.py", tmp_path)
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+KERNELS = ["conv2d", "matmul", "rmsnorm", "flash_attention"]
+
+
+def test_every_kernel_is_built_from_its_source():
+    from repro_torch.kernels import _build
+    assert sorted(_build.sources()) == sorted(KERNELS)
+
+
+@pytest.mark.parametrize("name", KERNELS)
+def test_kernel_source_carries_its_note(name):
+    """Each source names the TPU kernel it replaces, what bounds it on the
+    card and what its design does about that."""
+    text = (PORT / "kernels" / name / "csrc" / f"{name}.cu").read_text()
+    assert f"repro/kernels/{name}/" in text
+    assert "What bounds it on the H100" in text and "What the design does about it" in text
+    assert "cudaGetLastError" in text
+
+
+@pytest.mark.parametrize("name", KERNELS)
+def test_kernel_wrapper_counts_launches(name):
+    import importlib
+    ops = importlib.import_module(f"repro_torch.kernels.{name}.ops")
+    assert isinstance(getattr(ops, name).launches, int)
+
+
+def test_config_base_is_a_verbatim_copy():
+    assert (PORT / "configs" / "base.py").read_text() == \
+        (ROOT / "src" / "repro" / "configs" / "base.py").read_text()

@@ -1,0 +1,113 @@
+"""The port's RMSNorm (repro_torch.kernels.rmsnorm) against the JAX
+package's Pallas kernel (interpret mode) and ``layers.rms_norm``, on the
+same numpy inputs. On the CPU the port's wrapper takes its plain version;
+the CUDA kernel itself is checked by the ``cuda``-marked case."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.rmsnorm.ops import rmsnorm  # noqa: E402
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
+from repro_torch.models.layers import rms_norm  # noqa: E402
+
+# tests/test_serving.py::test_rmsnorm_kernel_matches_ref, plus StarCoder2-3B's width
+SHAPES = [(2, 16, 64), (1, 100, 128), (4, 7, 48), (2, 7, 3072)]
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@pytest.fixture
+def jnp():
+    pytest.importorskip("jax")
+    import jax.numpy
+    return jax.numpy
+
+
+def _tol(name):  # tests/test_serving.py: 2e-2 in bf16, 1e-5 in fp32
+    t = 2e-2 if name == "bfloat16" else 1e-5
+    return dict(atol=t, rtol=t)
+
+
+def _inputs(shape, name, scale_name=None):
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(DTYPES[name])
+    s = torch.from_numpy(rng.standard_normal(shape[-1]).astype(np.float32))
+    s = s.to(DTYPES[scale_name or name])
+    return x.float().numpy(), s.float().numpy(), x, s
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_rmsnorm_matches_jax(shape, name, jnp):
+    from repro.kernels.rmsnorm.ops import rmsnorm as jax_rmsnorm
+    from repro.models.layers import rms_norm as jax_rms_norm
+    x, s, xt, st = _inputs(shape, name)
+    xj, sj = jnp.asarray(x, name), jnp.asarray(s, name)
+    out = rmsnorm(xt, st)
+    assert out.dtype == DTYPES[name] and out.shape == shape
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(jax_rmsnorm(xj, sj, bm=32), np.float32), **_tol(name))
+    np.testing.assert_allclose(rms_norm(xt, {"scale": st}).float().numpy(),
+                               np.asarray(jax_rms_norm(xj, {"scale": sj}), np.float32),
+                               **_tol(name))
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_rmsnorm_scale_in_other_dtype(name, jnp):
+    """fp32 weights normalise bf16 activations (and the reverse), as in a
+    model whose params and compute dtypes differ."""
+    from repro.models.layers import rms_norm as jax_rms_norm
+    other = "float32" if name == "bfloat16" else "bfloat16"
+    x, s, xt, st = _inputs((3, 5, 96), name, other)
+    out = rmsnorm(xt, st)
+    assert out.dtype == DTYPES[name]
+    ref = jax_rms_norm(jnp.asarray(x, name), {"scale": jnp.asarray(s, other)})
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32), **_tol(name))
+
+
+def test_rms_norm_routes():
+    """layers.rms_norm is rmsnorm_ref; with use_kernel on a CPU tensor the
+    wrapper takes that same plain version and launches nothing."""
+    _, _, xt, st = _inputs((2, 4, 32), "float32")
+    before = rmsnorm.launches
+    torch.testing.assert_close(rms_norm(xt, {"scale": st}, use_kernel=True),
+                               rmsnorm_ref(xt, st), rtol=0, atol=0)
+    assert rmsnorm.launches == before
+
+
+@pytest.mark.parametrize("bad", ["scale_shape", "dtype", "device", "noncontiguous", "empty"])
+def test_rmsnorm_rejects(bad):
+    x, s = torch.zeros((4, 8)), torch.ones(8)
+    if bad == "scale_shape":
+        s = torch.ones(7)
+    elif bad == "dtype":
+        x = x.double()
+    elif bad == "device":
+        s = torch.ones(8, device="meta")
+    elif bad == "noncontiguous":
+        x = torch.zeros((8, 4)).t()
+        s = torch.ones(4)
+    elif bad == "empty":
+        x = torch.zeros((0, 8))
+    with pytest.raises(ValueError):
+        rmsnorm(x, s)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES + [(2048, 3072), (4, 1, 3072), (3, 20000)])
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_rmsnorm_kernel_matches_plain_on_card(shape, name, cuda_device):
+    _, _, xt, st = _inputs(shape, name)
+    xt, st = xt.to(cuda_device), st.to(cuda_device)
+    before = rmsnorm.launches
+    out = rmsnorm(xt, st)
+    torch.cuda.synchronize()
+    assert rmsnorm.launches == before + 1
+    torch.testing.assert_close(out.float(), rmsnorm_ref(xt, st).float(), **_tol(name))
