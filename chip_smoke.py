@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with a CUDA device and nvcc:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch`` (nvcc, sm_90a,
-one process per source, all started together) and then runs six phases;
+one process per source, all started together) and then runs nine phases;
 any failure raises and exits non-zero.
 
   (A) The direct-conv kernel against its plain PyTorch version at every
@@ -45,6 +45,36 @@ any failure raises and exits non-zero.
       with the plain one on the same cache (logits and new caches within
       2e-2 normalised); ``steps`` and ``utilization`` equal a plain-route
       batcher's on the same requests.
+  (G) The SSD kernel against its plain version ``ssd_ref`` at Zamba2-2.7B's
+      prefill shape (x (4, 512, 80, 64), b and c (4, 512, 64), chunk 256)
+      in fp32 and with the model's bf16 x, b, c, and at the small shapes of
+      the kernel tests (tests/test_kernels.py::SSD_CASES, S < chunk), with
+      chunk invariance (32 against 128); atol = rtol = 2e-4 (fp32), 2e-2
+      (bf16), the normalised error printed beside it. Then matmul, RMSNorm
+      and flash attention at every shape Zamba2's prefill and decode tick
+      give them. Times and bounds as in phase D; no PyTorch call computes
+      the SSD, so its library time is "none".
+  (H) Prefill: ``api.prefill_logits`` on Zamba2-2.7B at full width and depth
+      (54 Mamba2 layers, 9 uses of the shared attention block), bf16
+      weights from a seeded generator, batch 4 x 512 (two SSD chunks):
+      finite (4, 512, 32000) fp32 logits, exactly 280 matmul, 127 RMSNorm,
+      9 flash-attention and 54 SSD launches per forward. Each of the 63
+      blocks and the head is held kernel route against plain route fed the
+      same input: normalised error at most 2e-2 in bf16 and 2e-4 in fp32.
+      The end-to-end errors (bf16 and fp32) are printed, not gated: with
+      random weights the 63 blocks amplify any rounding difference at
+      their input, so the run also prints the plain fp32 route against
+      itself with its embeddings nudged by 1e-6 (PERF.md, Findings).
+  (I) Serving: ``ContinuousBatcher`` on the same weights, 4 slots, 8 seeded
+      requests (so slots are reused): every request completes; every tick
+      makes exactly 280 matmul and 127 RMSNorm launches; on ticks 0-3 every
+      block of the kernel decode step agrees with the plain one fed the
+      same input and the same cache lines (its output and its new conv,
+      ssm, k and v lines within 2e-2 normalised; the end-to-end logits and
+      caches are printed);
+      the conv and ssm lines of every slot admitted after tick 0 are zero
+      before its first tick; ``steps`` and ``utilization`` equal a
+      plain-route batcher's.
 
 Its last two lines are the kernel summary (one JSON object) and the result
 ``{"ok": true, "device": {...}}``. There is no CPU fallback: without a CUDA
@@ -71,13 +101,16 @@ from repro_torch.core.netinfo import _B, vgg16  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.conv2d.ops import conv2d  # noqa: E402
 from repro_torch.kernels.conv2d.ref import conv2d_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import attn_fn as flash_attn_fn  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.matmul.ops import matmul  # noqa: E402
 from repro_torch.kernels.matmul.ref import matmul_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm.ops import rmsnorm  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
-from repro_torch.models import api, transformer  # noqa: E402
+from repro_torch.kernels.ssd.ops import ssd  # noqa: E402
+from repro_torch.kernels.ssd.ref import ssd_ref  # noqa: E402
+from repro_torch.models import api, layers, ssm, transformer  # noqa: E402
 from repro_torch.models.cnn import (HybridPlan, forward, hybrid_forward,  # noqa: E402
                                     init_vgg)
 from repro_torch.serve.scheduler import ContinuousBatcher, Request  # noqa: E402
@@ -87,6 +120,7 @@ from repro_torch.serve.scheduler import ContinuousBatcher, Request  # noqa: E402
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 HBM_BYTES_PER_S = 3.35e12
 TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}  # tests/test_kernels.py::_tol
+SAME = 1e-6  # a model's blocks chained by hand against its entry point: the same arithmetic
 DTYPES = (torch.float32, torch.bfloat16)
 BATCH = 8
 # (N, C, H, W, K, R) of tests/test_kernels.py::CONV_CASES, plus an even R.
@@ -254,6 +288,7 @@ def phase_c(gen) -> None:
 # ---------------------------------------------------------------------------
 
 LM_ARCH = "starcoder2-3b"
+HYBRID_ARCH = "zamba2-2.7b"
 PREFILL_BATCH, PREFILL_SEQ = 4, 512
 SLOTS, MAX_SEQ, N_REQUESTS = 4, 256, 8
 LM_KERNELS = {  # name -> (source, the TPU kernel it replaces)
@@ -263,12 +298,15 @@ LM_KERNELS = {  # name -> (source, the TPU kernel it replaces)
                 "src/repro/kernels/rmsnorm/rmsnorm.py:25"),
     "flash_attention": ("src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/flash_attention.py:82"),
+    "ssd": ("src/repro_torch/kernels/ssd/csrc/ssd.cu", "src/repro/kernels/ssd/ssd.py:61"),
 }
-WRAPPERS = {"matmul": matmul, "rmsnorm": rmsnorm, "flash_attention": flash_attention}
+WRAPPERS = {"matmul": matmul, "rmsnorm": rmsnorm, "flash_attention": flash_attention,
+            "ssd": ssd}
 # Small shapes of the kernel tests: tests/test_kernels.py::MM_CASES (M, K, N)
 # plus single rows; tests/test_serving.py's RMSNorm shapes; ATTN_CASES
 # (b, s, h, kv, hd, causal, window) and queries shorter than keys
-# (b, s, s_k, h, kv, hd, window).
+# (b, s, s_k, h, kv, hd, window); SSD_CASES (B, S, H, P, N, chunk) plus
+# S < chunk.
 MM_SMALL = [(256, 512, 256), (100, 300, 50), (64, 64, 64), (128, 1, 128), (33, 65, 17),
             (1, 200, 129), (1, 3072, 3072)]
 RMS_SMALL = [(2, 16, 64), (1, 100, 128), (4, 7, 48)]
@@ -276,6 +314,8 @@ ATTN_SMALL = [(1, 128, 4, 2, 64, True, None), (2, 96, 4, 4, 32, True, None),
               (1, 256, 8, 2, 64, True, 64), (1, 64, 2, 2, 64, False, None),
               (1, 128, 6, 2, 48, True, None)]
 ATTN_SHORT_Q = [(2, 40, 100, 4, 2, 32, None), (1, 70, 200, 6, 2, 48, 64)]
+SSD_SMALL = [(2, 128, 4, 32, 16, 32), (1, 256, 2, 64, 32, 64), (1, 64, 8, 16, 64, 16),
+             (1, 100, 3, 16, 8, 256)]
 
 
 def normalised_err(out, ref) -> float:
@@ -288,25 +328,47 @@ def name_of(dtype) -> str:
     return str(dtype)[6:]
 
 
+def hybrid_dims(cfg) -> tuple[int, int, int]:
+    """(groups, d_inner, SSD heads) of a hybrid config."""
+    d_in = cfg.ssm.expansion * cfg.d_model
+    return cfg.n_layers // cfg.shared_attn_every, d_in, d_in // cfg.ssm.head_dim
+
+
 def lm_products(cfg) -> dict:
     """(K, N) -> how many products of that shape one forward (or decode step) makes."""
     hd = cfg.head_dim
-    per_layer = [(cfg.d_model, cfg.n_heads * hd), (cfg.d_model, cfg.n_kv * hd),
-                 (cfg.d_model, cfg.n_kv * hd), (cfg.n_heads * hd, cfg.d_model),
-                 (cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)]
+    block = [(cfg.d_model, cfg.n_heads * hd), (cfg.d_model, cfg.n_kv * hd),
+             (cfg.d_model, cfg.n_kv * hd), (cfg.n_heads * hd, cfg.d_model),
+             (cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)]
     if cfg.gated_mlp:
-        per_layer.append((cfg.d_model, cfg.d_ff))
+        block.append((cfg.d_model, cfg.d_ff))
+    per_model = [(kn, cfg.n_layers) for kn in block]
+    if cfg.family == "hybrid":  # the attention block runs once per group
+        groups, d_in, n_h = hybrid_dims(cfg)
+        per_model = [(kn, groups) for kn in block]
+        per_model += [(kn, cfg.n_layers) for kn in
+                      [(cfg.d_model, 2 * d_in), (cfg.d_model, 2 * cfg.ssm.state_dim),
+                       (cfg.d_model, n_h), (d_in, cfg.d_model)]]
+    per_model.append(((cfg.d_model, cfg.vocab), 1))
     counts: dict = {}
-    for kn in per_layer:
-        counts[kn] = counts.get(kn, 0) + cfg.n_layers
-    head = (cfg.d_model, cfg.vocab)
-    counts[head] = counts.get(head, 0) + 1
+    for kn, n in per_model:
+        counts[kn] = counts.get(kn, 0) + n
     return counts
 
 
+def lm_norms(cfg) -> dict:
+    """D -> how many RMSNorms over rows of width D one forward (or tick) makes."""
+    if cfg.family == "hybrid":
+        groups, d_in, _ = hybrid_dims(cfg)
+        return {cfg.d_model: cfg.n_layers + 2 * groups + 1, d_in: cfg.n_layers}
+    return {cfg.d_model: 2 * cfg.n_layers + 1}
+
+
 def expected_launches(cfg, decode: bool = False) -> dict:
-    return {"matmul": sum(lm_products(cfg).values()), "rmsnorm": 2 * cfg.n_layers + 1,
-            "flash_attention": 0 if decode else cfg.n_layers}
+    attn_blocks = hybrid_dims(cfg)[0] if cfg.family == "hybrid" else cfg.n_layers
+    return {"matmul": sum(lm_products(cfg).values()), "rmsnorm": sum(lm_norms(cfg).values()),
+            "flash_attention": 0 if decode else attn_blocks,
+            "ssd": cfg.n_layers if cfg.family == "hybrid" and not decode else 0}
 
 
 def reset_counts() -> None:
@@ -318,32 +380,91 @@ def counts() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
+def n_params(params) -> int:
+    """The real parameter count: the sum of numel over the weight tree."""
+    if isinstance(params, dict):
+        return sum(n_params(v) for v in params.values())
+    return params.numel()
+
+
 def randn(shape, dtype, gen, scale: float = 1.0):
     return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
 
 
 def timed_row(kernel, plain, library, nbytes, ops, dtype, **shape) -> dict:
-    """Kernel against its plain version on the same inputs, and the three times."""
+    """Kernel against its plain version on the same inputs, and the three times
+    (``library`` None: no PyTorch call computes the same function)."""
     tol = TOL[dtype]
-    err = max_err_within(kernel(), plain(), tol)
+    out, ref = kernel(), plain()
+    err = max_err_within(out, ref, tol)
     b_ms, b_by = least_ms(nbytes, ops, dtype)
-    return dict(shape, max_abs_err=err, ms=time_ms(kernel), plain_ms=time_ms(plain),
-                library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by)
+    return dict(shape, max_abs_err=err, normalised_err=normalised_err(out, ref),
+                ms=time_ms(kernel), plain_ms=time_ms(plain),
+                library_ms=None if library is None else time_ms(library),
+                bound_ms=b_ms, bound_by=b_by)
 
 
-def print_row(tag: str, dtype, desc: str, row: dict) -> None:
-    print(f"D {name_of(dtype):8s} {tag:15s} {desc}: max_abs_err {row['max_abs_err']:.3e}  "
+def print_row(phase: str, tag: str, dtype, desc: str, row: dict) -> None:
+    lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
+    print(f"{phase} {name_of(dtype):8s} {tag:15s} {desc}: max_abs_err {row['max_abs_err']:.3e}  "
           f"kernel {row['ms']:.4f} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']})  "
-          f"plain {row['plain_ms']:.4f} ms  library {row['library_ms']:.4f} ms  "
+          f"plain {row['plain_ms']:.4f} ms  library {lib}  "
           f"x{row['count']} per {row['per']}")
 
 
-def phase_d(gen) -> dict:
-    """LM kernels against their plain versions; per full-width shape, times and bounds.
+def lm_kernel_rows(cfg, gen, phase: str) -> dict:
+    """matmul, RMSNorm and flash attention against their plain versions at every
+    shape of ``cfg``'s prefill (batch 4 x 512) and decode tick (4 slots).
 
     Returns {kernel: {dtype: [rows]}}, each row with its count per prefill
     forward or per decode tick ("per").
     """
+    rows_m = PREFILL_BATCH * PREFILL_SEQ
+    out = {name: {} for name in ("matmul", "rmsnorm", "flash_attention")}
+    for dtype in DTYPES:
+        el = torch.finfo(dtype).bits // 8
+        mm_rows = []
+        for per, m in (("prefill", rows_m), ("decode tick", SLOTS)):
+            for (k, n), count in lm_products(cfg).items():
+                a, b = randn((m, k), dtype, gen), randn((k, n), dtype, gen, k ** -0.5)
+                row = timed_row(lambda: matmul(a, b), lambda: matmul_ref(a, b),
+                                lambda: torch.matmul(a, b), el * (m * k + k * n + m * n),
+                                2 * m * k * n, dtype, m=m, k=k, n=n, count=count, per=per)
+                print_row(phase, "matmul", dtype, f"M={m} K={k} N={n}", row)
+                mm_rows.append(row)
+                del a, b
+        rms_rows = []
+        for per, m in (("prefill", rows_m), ("decode tick", SLOTS)):
+            for d, count in lm_norms(cfg).items():
+                x, sc = randn((m, d), dtype, gen), randn((d,), dtype, gen)
+                row = timed_row(lambda: rmsnorm(x, sc), lambda: rmsnorm_ref(x, sc),
+                                lambda: F.rms_norm(x, (d,), sc, 1e-6),
+                                el * (2 * m * d + d), 4 * m * d, dtype,
+                                m=m, d=d, count=count, per=per)
+                print_row(phase, "rmsnorm", dtype, f"rows={m} D={d}", row)
+                rms_rows.append(row)
+        b, s, h, kv, hd = PREFILL_BATCH, PREFILL_SEQ, cfg.n_heads, cfg.n_kv, cfg.head_dim
+        q = randn((b, s, h, hd), dtype, gen)
+        k, v = randn((b, s, kv, hd), dtype, gen), randn((b, s, kv, hd), dtype, gen)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        row = timed_row(lambda: flash_attention(q, k, v, causal=True),
+                        lambda: attention_ref(q, k, v, causal=True),
+                        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                               enable_gqa=True),
+                        el * (2 * q.numel() + k.numel() + v.numel()),
+                        4 * b * h * s * s * hd / 2, dtype, b=b, s=s, sk=s, h=h, kv=kv, hd=hd,
+                        count=expected_launches(cfg)["flash_attention"], per="prefill")
+        print_row(phase, "flash_attention", dtype,
+                  f"B={b} S=Sk={s} H={h} KV={kv} hd={hd} causal", row)
+        out["matmul"][dtype], out["rmsnorm"][dtype] = mm_rows, rms_rows
+        out["flash_attention"][dtype] = [row]
+        del q, k, v, qt, kt, vt
+    return out
+
+
+def phase_d(gen) -> dict:
+    """LM kernels against their plain versions at the small test shapes and at
+    every StarCoder2-3B serving shape, with times and bounds."""
     for dtype in DTYPES:
         for m, k, n in MM_SMALL:
             a, b = randn((m, k), dtype, gen), randn((k, n), dtype, gen, k ** -0.5)
@@ -362,54 +483,15 @@ def phase_d(gen) -> dict:
                                  attention_ref(q, k, v, causal=causal, window=win), TOL[dtype])
             print(f"D {name_of(dtype):8s} flash B={b} S={s} Sk={sk} H={h} KV={kv} hd={hd} "
                   f"causal={causal} window={win}: max_abs_err {err:.3e}")
-
-    cfg = get_config(LM_ARCH)
-    rows_m = PREFILL_BATCH * PREFILL_SEQ
-    out = {name: {} for name in LM_KERNELS}
-    for dtype in DTYPES:
-        el = torch.finfo(dtype).bits // 8
-        mm_rows = []
-        for per, m in (("prefill", rows_m), ("decode tick", SLOTS)):
-            for (k, n), count in lm_products(cfg).items():
-                a, b = randn((m, k), dtype, gen), randn((k, n), dtype, gen, k ** -0.5)
-                row = timed_row(lambda: matmul(a, b), lambda: matmul_ref(a, b),
-                                lambda: torch.matmul(a, b), el * (m * k + k * n + m * n),
-                                2 * m * k * n, dtype, m=m, k=k, n=n, count=count, per=per)
-                print_row("matmul", dtype, f"M={m} K={k} N={n}", row)
-                mm_rows.append(row)
-                del a, b
-        rms_rows = []
-        for per, m in (("prefill", rows_m), ("decode tick", SLOTS)):
-            x, sc = randn((m, cfg.d_model), dtype, gen), randn((cfg.d_model,), dtype, gen)
-            row = timed_row(lambda: rmsnorm(x, sc), lambda: rmsnorm_ref(x, sc),
-                            lambda: F.rms_norm(x, (cfg.d_model,), sc, 1e-6),
-                            el * (2 * m * cfg.d_model + cfg.d_model), 4 * m * cfg.d_model, dtype,
-                            m=m, d=cfg.d_model, count=2 * cfg.n_layers + 1, per=per)
-            print_row("rmsnorm", dtype, f"rows={m} D={cfg.d_model}", row)
-            rms_rows.append(row)
-        b, s, h, kv, hd = PREFILL_BATCH, PREFILL_SEQ, cfg.n_heads, cfg.n_kv, cfg.head_dim
-        q = randn((b, s, h, hd), dtype, gen)
-        k, v = randn((b, s, kv, hd), dtype, gen), randn((b, s, kv, hd), dtype, gen)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        row = timed_row(lambda: flash_attention(q, k, v, causal=True),
-                        lambda: attention_ref(q, k, v, causal=True),
-                        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                               enable_gqa=True),
-                        el * (2 * q.numel() + k.numel() + v.numel()),
-                        4 * b * h * s * s * hd / 2, dtype,
-                        b=b, s=s, sk=s, h=h, kv=kv, hd=hd, count=cfg.n_layers, per="prefill")
-        print_row("flash_attention", dtype, f"B={b} S=Sk={s} H={h} KV={kv} hd={hd} causal", row)
-        out["matmul"][dtype], out["rmsnorm"][dtype] = mm_rows, rms_rows
-        out["flash_attention"][dtype] = [row]
-        del q, k, v, qt, kt, vt
-    return out
+    return lm_kernel_rows(get_config(LM_ARCH), gen, "D")
 
 
 def lm_summary(rows, per: str) -> dict:
     """Per-shape numbers summed over one prefill forward or one decode tick."""
     rows = [r for r in rows if r["per"] == per]
-    tot = {key: sum(r[key] * r["count"] for r in rows)
-           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    tot = {key: sum(r[key] * r["count"] for r in rows) for key in ("ms", "plain_ms", "bound_ms")}
+    tot["library_ms"] = (None if any(r["library_ms"] is None for r in rows)
+                         else sum(r["library_ms"] * r["count"] for r in rows))
     ops_ms = sum(r["bound_ms"] * r["count"] for r in rows if r["bound_by"] == "operations")
     tot["bound_by"] = "operations" if ops_ms >= tot["bound_ms"] / 2 else "bytes"
     tot["max_abs_err"] = max(r["max_abs_err"] for r in rows)
@@ -445,7 +527,7 @@ def phase_e(gen):
     wall = statistics.median(walls)
     tokens_n = PREFILL_BATCH * PREFILL_SEQ
     print(f"E bfloat16 {LM_ARCH} prefill B={PREFILL_BATCH} S={PREFILL_SEQ} "
-          f"({cfg.n_layers} layers, {cfg.param_count() / 1e9:.2f} B params): normalised error "
+          f"({cfg.n_layers} layers, {n_params(params) / 1e9:.3f} B params): normalised error "
           f"{err:.3e}  launches {got}  wall {wall:.3f} ms (median of {len(walls)})  "
           f"{tokens_n / wall * 1e3:.1f} tokens/s")
     del logits, ref, tokens
@@ -521,19 +603,354 @@ def phase_f(params, cfg) -> dict:
     return dict(total, ticks=b.steps, per_tick=want)
 
 
-def lm_entries(rows, prefill_launches, serving) -> list:
+# ---------------------------------------------------------------------------
+# The hybrid LM: Zamba2-2.7B serving (phases G-I)
+# ---------------------------------------------------------------------------
+
+
+def ssd_inputs(b, s, h, p, n, dtype, gen):
+    """x, dt (softplus-like range), a_log, b, c as tests/test_kernels.py draws them."""
+    dt = 0.1 + 0.9 * torch.rand((b, s, h), generator=gen, device="cuda")
+    a_log = -1.0 + 1.5 * torch.rand((h,), generator=gen, device="cuda")
+    return (randn((b, s, h, p), dtype, gen, 0.5), dt, a_log, randn((b, s, n), dtype, gen, 0.3),
+            randn((b, s, n), dtype, gen, 0.3))
+
+
+def ssd_work(b, s, h, p, n, chunk, dtype) -> tuple[float, float]:
+    """(bytes, operations) of one SSD call: x, b, c read and y written in the
+    input dtype, dt and a in fp32. Per (batch, head, chunk): C B^T and its
+    product with xdt on the causal triangle only (L is 0 above the
+    diagonal), Q(Q + 1)/2 dot products of N and of P, Q(Q + 1)(N + P)
+    operations; C state^T and the state update, 4QPN."""
+    el = torch.finfo(dtype).bits // 8
+    q = min(chunk, s)
+    nbytes = el * (2 * b * s * h * p + 2 * b * s * n) + 4 * (b * s * h + h)
+    return nbytes, b * h * (s // q) * (q * (q + 1) * (n + p) + 4 * q * p * n)
+
+
+def phase_g(gen) -> dict:
+    """The SSD kernel against ssd_ref, and the LM kernels at Zamba2's shapes."""
+    for dtype in DTYPES:
+        for b, s, h, p, n, chunk in SSD_SMALL:
+            args = ssd_inputs(b, s, h, p, n, dtype, gen)
+            out, ref = ssd(*args, chunk=chunk), ssd_ref(*args, chunk=chunk)
+            err = max_err_within(out, ref, TOL[dtype])
+            print(f"G {name_of(dtype):8s} ssd B={b} S={s} H={h} P={p} N={n} chunk={chunk}: "
+                  f"max_abs_err {err:.3e}  normalised {normalised_err(out, ref):.3e}")
+    x, dt, _, b, c = ssd_inputs(1, 128, 2, 16, 8, torch.float32, gen)
+    a_log = torch.zeros(2, device="cuda")
+    o32, o128 = ssd(x, dt, a_log, b, c, chunk=32), ssd(x, dt, a_log, b, c, chunk=128)
+    diff = (o32 - o128).abs().max().item()
+    check(diff <= 1e-4, f"ssd chunk 32 against chunk 128: max |diff| {diff:.3e}")
+    print(f"G float32  ssd chunk invariance (1, 128, 2, 16, N=8), chunk 32 vs 128: "
+          f"max |diff| {diff:.3e}")
+
+    cfg = get_config(HYBRID_ARCH)
+    _, _, n_h = hybrid_dims(cfg)
+    sc = cfg.ssm
+    shape = (PREFILL_BATCH, PREFILL_SEQ, n_h, sc.head_dim, sc.state_dim)
+    rows = {}
+    for dtype in DTYPES:
+        args = ssd_inputs(*shape, dtype, gen)
+        row = timed_row(lambda: ssd(*args, chunk=sc.chunk),
+                        lambda: ssd_ref(*args, chunk=sc.chunk), None,
+                        *ssd_work(*shape, sc.chunk, dtype), dtype, shape=shape, chunk=sc.chunk,
+                        count=cfg.n_layers, per="prefill")
+        print_row("G", "ssd", dtype, "B={} S={} H={} P={} N={} chunk={}".format(
+            *shape, sc.chunk) + f" (normalised {row['normalised_err']:.3e})", row)
+        rows[dtype] = [row]
+        del args
+    return {"ssd": rows, **lm_kernel_rows(cfg, gen, "G")}
+
+
+def cast_tree(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: cast_tree(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
+
+
+def run_blocks(blocks, x) -> tuple[list, tuple, tuple]:
+    """Drive blocks [(name, fn(h, use_kernel) -> (output, *new cache lines))]
+    from x three ways: the kernel route and the plain route, each on the
+    plain route's output of the block before, for [(name, largest normalised
+    error over the block's outputs)]; and the kernel route alone, block after
+    block. Returns (errors, (final output, {name: new cache lines}) of the
+    kernel chain, the same of the plain chain). The callers hold both chains
+    against the model's own entry point, so the per-block gate covers the
+    blocks of the path that is timed, not a copy of its wiring."""
+    errs, xk, xp, lines_k, lines_p = [], x, x, {}, {}
+    for name, fn in blocks:
+        out, ref = fn(xp, True), fn(xp, False)
+        errs.append((name, max(normalised_err(a, b) for a, b in zip(out, ref))))
+        xp, lines_p[name] = ref[0], ref[1:]
+        out = fn(xk, True)
+        xk, lines_k[name] = out[0], out[1:]
+    return errs, (xk, lines_k), (xp, lines_p)
+
+
+def hybrid_blocks(params, cfg) -> list:
+    """The hybrid forward (recurrent.zamba_forward) after the embedding, block
+    by block: [(name, fn(h, use_kernel) -> (output,))], the head last."""
+    shared, blocks = params["shared"], []
+
+    def norm(h, key, uk, tree=shared):
+        return layers.rms_norm(h, tree[key], use_kernel=uk)
+
+    for g in range(hybrid_dims(cfg)[0]):
+        gp = transformer.layer(params["mamba"], g)
+        for i in range(cfg.shared_attn_every):
+            blocks.append((f"mamba {g}.{i}", lambda h, uk, mp=transformer.layer(gp, i): (
+                h + ssm.mamba2_apply(norm(h, "mamba_ln", uk, params), mp, cfg.ssm,
+                                     use_kernel=uk),)))
+        blocks.append((f"attention {g}", lambda h, uk: (h + layers.gqa_attention(
+            norm(h, "ln1", uk), shared["attn"], cfg.n_heads, cfg.n_kv, rope=cfg.rope,
+            rope_theta=cfg.rope_theta, attn_fn=flash_attn_fn if uk else None,
+            use_kernel=uk),)))
+        blocks.append((f"mlp {g}", lambda h, uk: (h + layers.mlp(
+            norm(h, "ln2", uk), shared["mlp"], cfg.activation, use_kernel=uk),)))
+    blocks.append(("head", lambda h, uk: (layers.linear(
+        norm(h, "ln_f", uk, params), params["lm_head"], uk).float(),)))
+    return blocks
+
+
+def hybrid_block_errors(params, cfg, tokens, dtype, logits, plain) -> tuple[list, float]:
+    """Every block of the hybrid forward and the head, the kernel route and the
+    plain route fed the same input (the plain route's residual stream):
+    ([(block, normalised error of its output)], the larger normalised
+    difference of the kernel chain's logits from ``logits`` and the plain
+    chain's from ``plain``, api.prefill_logits' on the two routes)."""
+    errs, (xk, _), (xp, _) = run_blocks(hybrid_blocks(params, cfg),
+                                        params["embed"][tokens].to(dtype))
+    return errs, max(normalised_err(xk, logits), normalised_err(xp, plain))
+
+
+def phase_h(gen):
+    """Full-width Zamba2-2.7B prefill; returns (params, cfg, launches per forward)."""
+    cfg = get_config(HYBRID_ARCH)
+    params = api.init_params(cfg, generator=gen, device="cuda", dtype=torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_BATCH, PREFILL_SEQ), generator=gen,
+                           device="cuda")
+    batch = {"tokens": tokens}
+    want = expected_launches(cfg)
+    with torch.inference_mode():
+        api.prefill_logits(params, cfg, batch)  # warm-up
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(3):
+            reset_counts()
+            t0 = time.perf_counter()
+            logits = api.prefill_logits(params, cfg, batch)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            got = counts()
+            check(got == want, f"prefill launches {got}, expected {want}")
+        plain16 = api.prefill_logits(params, cfg, batch, use_kernel=False)
+        err16 = normalised_err(logits, plain16)
+        blocks16, chain16 = hybrid_block_errors(params, cfg, tokens, torch.bfloat16, logits,
+                                                plain16)
+        params32 = cast_tree(params, torch.float32)
+        out32 = api.prefill_logits(params32, cfg, batch, compute_dtype=torch.float32)
+        plain32 = api.prefill_logits(params32, cfg, batch, compute_dtype=torch.float32,
+                                     use_kernel=False)
+        err32 = normalised_err(out32, plain32)
+        blocks32, chain32 = hybrid_block_errors(params32, cfg, tokens, torch.float32, out32,
+                                                plain32)
+        # the model's own conditioning: the plain fp32 route against itself,
+        # its embeddings nudged by a relative 1e-6
+        nudged = dict(params32, embed=params32["embed"] * (
+            1 + 1e-6 * torch.randn(params32["embed"].shape, generator=gen, device="cuda")))
+        sens32 = normalised_err(api.prefill_logits(nudged, cfg, batch,
+                                                   compute_dtype=torch.float32,
+                                                   use_kernel=False), plain32)
+        del params32, out32, nudged, plain32, plain16
+    check(tuple(logits.shape) == (PREFILL_BATCH, PREFILL_SEQ, cfg.vocab),
+          f"logits shape {tuple(logits.shape)}")
+    check(logits.dtype == torch.float32, f"logits dtype {logits.dtype}")
+    check(bool(torch.isfinite(logits).all()), "non-finite logits")
+    wall = statistics.median(walls)
+    tokens_n = PREFILL_BATCH * PREFILL_SEQ
+    groups = hybrid_dims(cfg)[0]
+    print(f"H bfloat16 {HYBRID_ARCH} prefill B={PREFILL_BATCH} S={PREFILL_SEQ} "
+          f"({cfg.n_layers} Mamba2 layers + {groups} shared-attention blocks, "
+          f"{n_params(params) / 1e9:.3f} B params; cfg.param_count() says "
+          f"{cfg.param_count() / 1e9:.3f} B): launches {got}  wall {wall:.3f} ms "
+          f"(median of {len(walls)})  {tokens_n / wall * 1e3:.1f} tokens/s")
+    for (name, e16), (_, e32) in zip(blocks16[:cfg.shared_attn_every + 2], blocks32):
+        print(f"H block {name:12s} kernel vs plain, same input: bf16 {e16:.3e}  fp32 {e32:.3e}")
+    max16, max32 = max(e for _, e in blocks16), max(e for _, e in blocks32)
+    print(f"H all {len(blocks16) - 1} blocks and the head, same input: max bf16 {max16:.3e} "
+          f"({max(blocks16, key=lambda t: t[1])[0]}), max fp32 {max32:.3e} "
+          f"({max(blocks32, key=lambda t: t[1])[0]})")
+    print(f"H the blocks chained against api.prefill_logits on each route: bf16 "
+          f"{chain16:.3e}  fp32 {chain32:.3e}")
+    check(max(chain16, chain32) <= SAME,
+          f"the blocks chained differ from api.prefill_logits: {chain16:.3e}, {chain32:.3e}")
+    print(f"H end to end, kernel route against plain route (not gated): bf16 {err16:.3e}  "
+          f"fp32 {err32:.3e}; plain fp32 route against itself, embeddings nudged by 1e-6: "
+          f"{sens32:.3e}")
+    check(max16 <= TOL[torch.bfloat16] and max32 <= TOL[torch.float32],
+          f"a block's kernel route misses its plain route: bf16 {max16:.3e}, fp32 {max32:.3e}")
+    del logits, tokens
+    return params, cfg, got
+
+
+def hybrid_decode_blocks(params, cfg, cache, pos) -> list:
+    """One hybrid decode step (recurrent.zamba_decode_step) after the
+    embedding, block by block: [(name, fn(h, use_kernel) -> (output, *new
+    cache lines))], the head last."""
+    shared, blocks = params["shared"], []
+
+    def norm(h, key, uk, tree=shared):
+        return layers.rms_norm(h, tree[key], use_kernel=uk)
+
+    def mamba(h, uk, mp, g, i):
+        y, conv, state = ssm.mamba2_decode(norm(h, "mamba_ln", uk, params), mp, cfg.ssm,
+                                           cache["conv"][g, i], cache["ssm"][g, i],
+                                           use_kernel=uk)
+        return h + y, conv, state
+
+    def attention(h, uk, g):
+        out, k, v = layers.gqa_decode_attention(
+            norm(h, "ln1", uk), shared["attn"], cfg.n_heads, cfg.n_kv, cache["k"][g],
+            cache["v"][g], pos, rope=cfg.rope, rope_theta=cfg.rope_theta, use_kernel=uk)
+        return h + out, k, v
+
+    for g in range(hybrid_dims(cfg)[0]):
+        gp = transformer.layer(params["mamba"], g)
+        for i in range(cfg.shared_attn_every):
+            blocks.append((f"mamba {g}.{i}", lambda h, uk, mp=transformer.layer(gp, i), g=g,
+                           i=i: mamba(h, uk, mp, g, i)))
+        blocks.append((f"attention {g}", lambda h, uk, g=g: attention(h, uk, g)))
+        blocks.append((f"mlp {g}", lambda h, uk: (h + layers.mlp(
+            norm(h, "ln2", uk), shared["mlp"], cfg.activation, use_kernel=uk),)))
+    blocks.append(("head", lambda h, uk: (layers.linear(
+        norm(h, "ln_f", uk, params)[:, 0], params["lm_head"], uk).float(),)))
+    return blocks
+
+
+def hybrid_decode_block_errors(params, cfg, cache, toks, pos, step, plain) -> tuple[list, float]:
+    """Every block of one hybrid decode step and the head, the kernel route and
+    the plain route fed the same input and the same cache lines: ([(block,
+    largest normalised error over its output and new cache lines)], the
+    largest normalised difference of the kernel chain's logits and cache
+    lines from ``step`` and the plain chain's from ``plain``, the (logits,
+    new cache) of api.decode_step on the two routes)."""
+    errs, *chains = run_blocks(hybrid_decode_blocks(params, cfg, cache, pos),
+                               params["embed"][toks].to(torch.bfloat16))
+    pairs = []
+    for (x, lines), (logits, new) in zip(chains, (step, plain)):
+        pairs.append((x, logits))
+        for g in range(hybrid_dims(cfg)[0]):
+            for i in range(cfg.shared_attn_every):
+                conv, state = lines[f"mamba {g}.{i}"]
+                pairs += [(conv, new["conv"][g, i]), (state, new["ssm"][g, i])]
+            k, v = lines[f"attention {g}"]
+            pairs += [(k, new["k"][g]), (v, new["v"][g])]
+    return errs, max(normalised_err(a, b) for a, b in pairs)
+
+
+def phase_i(params, cfg) -> dict:
+    """Full-width Zamba2 continuous batching; returns launches over the counted ticks."""
+    reqs = serving_requests(cfg)
+    want = expected_launches(cfg, decode=True)
+    b = ContinuousBatcher(cfg, params, slots=SLOTS, max_seq=MAX_SEQ, device="cuda")
+    for r in reqs:
+        b.submit(r)
+    ticks, total = [], {name: 0 for name in WRAPPERS}
+    errs = {key: 0.0 for key in ("logits", "conv", "ssm", "k", "v")}
+    block_err, chain_err, admitted_later = ("", 0.0), 0.0, 0
+    while True:
+        b._admit()
+        for slot, st in enumerate(b.active):  # a slot reused: its recurrent state is zero
+            if st is not None and b.steps > 0 and st["start_step"] == b.steps:
+                admitted_later += 1
+                check(bool((b.cache["conv"][:, :, slot] == 0).all())
+                      and bool((b.cache["ssm"][:, :, slot] == 0).all()),
+                      f"slot {slot}, admitted at tick {b.steps}, starts from a used state")
+        if b.steps < 4:  # the kernel decode step against the plain one, on the same cache
+            toks, pos = b._gather_inputs()
+            with torch.inference_mode():
+                lk, ck = api.decode_step(params, cfg, b.cache, toks, pos)
+                lp, cp = api.decode_step(params, cfg, b.cache, toks, pos, use_kernel=False)
+                blocks, chained = hybrid_decode_block_errors(params, cfg, b.cache, toks, pos,
+                                                             (lk, ck), (lp, cp))
+            check(chained <= SAME, f"decode tick {b.steps}: the blocks chained differ from "
+                  f"api.decode_step by {chained:.3e}")
+            chain_err = max(chain_err, chained)
+            tick = {"logits": normalised_err(lk, lp),
+                    **{key: normalised_err(ck[key], cp[key]) for key in ck}}
+            errs = {key: max(errs[key], tick[key]) for key in errs}
+            worst = max(blocks, key=lambda t: t[1])
+            check(worst[1] <= TOL[torch.bfloat16],
+                  f"decode tick {b.steps}: block {worst[0]}, kernel vs plain {worst[1]:.3e}")
+            block_err = max(block_err, worst, key=lambda t: t[1])
+            del lk, ck, lp, cp
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        if not b.step():  # the tick's argmax reaches the host, so the step has ended
+            break
+        ticks.append((time.perf_counter() - t0) * 1e3)
+        got = counts()
+        check(got == want, f"tick {b.steps}: launches {got}, expected {want}")
+        for name in total:
+            total[name] += got[name]
+    done = {c.rid: c for c in b.done}
+    check(sorted(done) == [r.rid for r in reqs], f"completed {sorted(done)}")
+    check(all(len(done[r.rid].tokens) == r.max_new for r in reqs), "a request stopped early")
+    check(admitted_later == N_REQUESTS - SLOTS,
+          f"{admitted_later} admissions after tick 0, expected {N_REQUESTS - SLOTS}")
+
+    plain = ContinuousBatcher(cfg, params, slots=SLOTS, max_seq=MAX_SEQ, device="cuda",
+                              use_kernel=False)
+    for r in reqs:
+        plain.submit(r)
+    plain_done = {c.rid: c for c in plain.run()}
+    check((plain.steps, plain.utilization) == (b.steps, b.utilization),
+          f"steps/utilization {b.steps}/{b.utilization} vs plain "
+          f"{plain.steps}/{plain.utilization}")
+    same = sum(a == c for r in reqs
+               for a, c in zip(done[r.rid].tokens, plain_done[r.rid].tokens))
+    generated = sum(r.max_new for r in reqs)
+    wall = sum(ticks)
+    print(f"I bfloat16 {HYBRID_ARCH} serving {N_REQUESTS} requests on {SLOTS} slots: "
+          f"{b.steps} ticks  utilization {b.utilization:.4f} (plain route "
+          f"{plain.utilization:.4f})  launches per tick {want}  {admitted_later} slots reused, "
+          f"each from a zero state  decode vs plain on ticks 0-3, every block fed the same "
+          f"input and cache lines: max {block_err[1]:.3e} ({block_err[0]}), the blocks "
+          f"chained against api.decode_step {chain_err:.3e}; end to end (not "
+          f"gated): " + "  ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f"  tokens equal to the plain route {same}/{generated}")
+    print(f"I bfloat16 tick {statistics.median(ticks):.3f} ms (median), "
+          f"{wall / len(ticks):.3f} ms (mean); {generated} generated tokens in {wall:.1f} ms "
+          f"= {generated / wall * 1e3:.1f} generated tokens/s, "
+          f"{b.busy_slot_steps / wall * 1e3:.1f} slot-tokens/s")
+    return dict(total, ticks=b.steps, per_tick=want)
+
+
+def lm_entries(rows, launches, serving, hybrid_rows, hybrid_launches, hybrid_serving) -> list:
+    """One entry per LM kernel: StarCoder2-3B's prefill (phases D-F) at the top
+    level with Zamba2-2.7B's (phases G-I) beside it; the SSD runs on Zamba2 only."""
+
+    def numbers(by, prefill, serve, name):
+        out = {"launches": prefill[name], **lm_summary(by[torch.bfloat16], "prefill"),
+               "float32": lm_summary(by[torch.float32], "prefill")}
+        if serve["per_tick"][name]:
+            out["decode_tick"] = {"launches": serve["per_tick"][name],
+                                  **lm_summary(by[torch.bfloat16], "decode tick")}
+        out["serving_launches"] = serve[name]
+        return out
+
     entries = []
     for name, (source, replaces) in LM_KERNELS.items():
-        by = rows[name]
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                 "dtype": "bfloat16", "per": "prefill forward",
-                 "launches": prefill_launches[name],
-                 **lm_summary(by[torch.bfloat16], "prefill"),
-                 "float32": lm_summary(by[torch.float32], "prefill")}
-        if name != "flash_attention":
-            entry["decode_tick"] = {"launches": serving["per_tick"][name],
-                                    **lm_summary(by[torch.bfloat16], "decode tick")}
-        entry["serving_launches"] = serving[name]
+                 "dtype": "bfloat16", "per": "prefill forward"}
+        hybrid = numbers(hybrid_rows[name], hybrid_launches, hybrid_serving, name)
+        if name in rows:
+            entry.update(arch=LM_ARCH, **numbers(rows[name], launches, serving, name))
+            entry[HYBRID_ARCH] = hybrid
+        else:
+            entry.update(arch=HYBRID_ARCH, **hybrid)
         entries.append(entry)
     return entries
 
@@ -571,13 +988,22 @@ def main() -> int:
     serving = phase_f(params, cfg)
     del params
     torch.cuda.empty_cache()
+    hybrid_rows = phase_g(gen)
+    torch.cuda.empty_cache()
+    params, cfg, hybrid_launches = phase_h(gen)
+    torch.cuda.empty_cache()
+    hybrid_serving = phase_i(params, cfg)
+    del params
+    torch.cuda.empty_cache()
 
     entry = {"name": "conv2d", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
              "dtype": "float32", "launches": launches[torch.float32],
              **vgg_forward_summary(rows[torch.float32]),
              "bfloat16": {"launches": launches[torch.bfloat16],
                           **vgg_forward_summary(rows[torch.bfloat16])}}
-    print(json.dumps({"kernels": [entry, *lm_entries(lm_rows, prefill_launches, serving)]}))
+    print(json.dumps({"kernels": [entry, *lm_entries(lm_rows, prefill_launches, serving,
+                                                     hybrid_rows, hybrid_launches,
+                                                     hybrid_serving)]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

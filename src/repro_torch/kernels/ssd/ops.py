@@ -1,0 +1,76 @@
+"""Checked entry point of the SSD chunked-scan kernel.
+
+The counterpart of ``repro/kernels/ssd/ops.py::ssd``, with the model-native
+contract of ``ssd_chunked``: x (B, S, H, P), dt (B, S, H), a_log (H,), b, c
+(B, S, N) -> y (B, S, H, P) in x's dtype, with chunks of
+``q = min(chunk, S)`` rows, q dividing S. The decay terms the Pallas
+wrapper precomputes (``dt * A`` and its cumulative sums, ``x * dt``) are
+taken inside the kernel; only ``a = -exp(a_log)`` (H numbers) is taken
+here. A CUDA tensor launches the CUDA kernel (or raises); a CPU tensor
+takes the plain version ``ssd_ref``. ``ssd.launches`` counts kernel
+launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from .ref import ssd_ref
+from .ssd import DTYPE_CODES, ssd_scan
+
+_MAX_PN = 64         # the kernel's widest head (P) and state (N), Zamba2's
+# Chunk rows: at P = N = 64 a block needs 4 * (20736 + 2q) bytes of shared
+# memory (``smem_floats`` in csrc/ssd.cu), and the H100 gives it 227 KB.
+_MAX_Q = (227 * 1024 // 4 - 20736) // 2
+_MAX_GRID_Y = 65535  # CUDA's limit on grid y (the batch)
+
+
+def _check(x, dt, a_log, b, c, chunk) -> int:
+    if not all(isinstance(t, torch.Tensor) for t in (x, dt, a_log, b, c)):
+        raise TypeError("ssd takes five tensors")
+    if x.dim() != 4 or dt.dim() != 3 or a_log.dim() != 1 or b.dim() != 3 or c.shape != b.shape:
+        raise ValueError(f"ssd takes x (B, S, H, P), dt (B, S, H), a_log (H,) and b, c "
+                         f"(B, S, N); got shapes {tuple(x.shape)}, {tuple(dt.shape)}, "
+                         f"{tuple(a_log.shape)}, {tuple(b.shape)}, {tuple(c.shape)}")
+    bsz, s, h, p = x.shape
+    if tuple(dt.shape) != (bsz, s, h) or a_log.shape[0] != h or tuple(b.shape[:2]) != (bsz, s):
+        raise ValueError(f"x {tuple(x.shape)}, dt {tuple(dt.shape)}, a_log "
+                         f"{tuple(a_log.shape)} and b, c {tuple(b.shape)} differ in B, S or H")
+    if x.dtype not in DTYPE_CODES or b.dtype != x.dtype or c.dtype != x.dtype:
+        raise ValueError(f"ssd takes x, b and c in one of float32 or bfloat16; "
+                         f"got {x.dtype}, {b.dtype}, {c.dtype}")
+    if dt.dtype not in DTYPE_CODES or a_log.dtype not in DTYPE_CODES:
+        raise ValueError(f"ssd takes dt and a_log in float32 or bfloat16; "
+                         f"got {dt.dtype} and {a_log.dtype}")
+    if len({t.device for t in (x, dt, a_log, b, c)}) != 1 or x.device.type not in ("cpu", "cuda"):
+        raise ValueError("ssd takes its tensors on one CPU or CUDA device")
+    if x.numel() == 0 or b.numel() == 0:
+        raise ValueError("ssd takes non-empty tensors")
+    if not all(t.is_contiguous() for t in (x, dt, a_log, b, c)):
+        raise ValueError("ssd takes contiguous tensors")
+    if not isinstance(chunk, int) or chunk < 1:
+        raise ValueError(f"chunk must be a positive int; got {chunk!r}")
+    q = min(chunk, s)
+    if s % q:
+        raise ValueError(f"seq {s} not divisible by chunk {q}")
+    n = b.shape[-1]
+    if p > _MAX_PN or n > _MAX_PN or q > _MAX_Q or bsz > _MAX_GRID_Y:
+        raise ValueError(f"P {p}, N {n}, chunk {q} or batch {bsz} exceeds the kernel's "
+                         f"limits (P, N <= {_MAX_PN}, chunk <= {_MAX_Q}, "
+                         f"batch <= {_MAX_GRID_Y})")
+    return q
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor,
+        c: torch.Tensor, *, chunk: int = 128) -> torch.Tensor:
+    """x (B, S, H, P); dt (B, S, H); a_log (H,); b, c (B, S, N) -> (B, S, H, P)."""
+    q = _check(x, dt, a_log, b, c, chunk)
+    if x.device.type == "cpu":
+        return ssd_ref(x, dt, a_log, b, c, chunk)
+    a = -torch.exp(a_log.float())
+    out = torch.empty_like(x)
+    ssd_scan(x, dt.float(), a, b, c, out, q)
+    ssd.launches += 1
+    return out
+
+
+ssd.launches = 0

@@ -1,2 +1,3 @@
 """Models of the port: the paper's VGG CNNs with their hybrid execution plan,
-and the dense decoder-only LM with its serving entry points."""
+and the dense and hybrid (Mamba2 + shared attention) LMs with their serving
+entry points."""

@@ -225,6 +225,13 @@ def init_mlp(generator: torch.Generator, d_model: int, d_ff: int, gated: bool,
     return p
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``'s formula, x * (1 / (1 + exp(-x))), each step rounded
+    to x's dtype as the JAX package rounds it (``F.silu`` rounds once, which
+    in bf16 differs in about a third of the elements)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
 def mlp(x, params, activation: str = "silu", *, use_kernel: bool = False):
     h = linear(x, params["w_up"], use_kernel)
     if activation == "relu2":        # Nemotron squared ReLU
@@ -232,7 +239,7 @@ def mlp(x, params, activation: str = "silu", *, use_kernel: bool = False):
     elif activation == "gelu":       # jax.nn.gelu's default is the tanh form
         h = F.gelu(h, approximate="tanh")
     else:
-        h = F.silu(h)
+        h = silu(h)
     if "w_gate" in params:
         h = h * linear(x, params["w_gate"], use_kernel)
     return linear(h, params["w_down"], use_kernel)

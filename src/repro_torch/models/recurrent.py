@@ -1,0 +1,140 @@
+"""Recurrent-family LMs: Zamba2 (Mamba2 backbone + one *shared* attention
+block reused every N layers).
+
+The counterpart of the Zamba2 part of ``repro/models/recurrent.py``. The
+weights are the JAX tree: the Mamba2 leaves stacked along (G, per, ...)
+(G groups of ``cfg.shared_attn_every`` layers), the shared attention and
+MLP block stored once, one shared pre-norm scale ``mamba_ln``; so
+``transformer.params_from_jax`` carries them across unchanged. Python loops
+replace ``jax.lax.scan``; its ``remat`` and ``unroll`` are JAX compile
+options with no counterpart.
+
+With ``use_kernel=True`` the prefill scan goes through the SSD kernel,
+prefill attention through the flash-attention kernel, every dense product
+through the matmul kernel and every RMSNorm through the RMSNorm kernel;
+decode runs the plain ``ssd_decode`` and the plain attention over the
+cache, as the reference does. The xLSTM family waits for ROADMAP.md queue
+1 item 8.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.flash_attention.ops import attn_fn as flash_attn_fn
+from .layers import (dense_init, embed_init, gqa_attention, gqa_decode_attention,
+                     init_attention, init_mlp, init_rmsnorm, linear, mlp, rms_norm)
+from .ssm import init_mamba2, mamba2_apply, mamba2_decode
+from .transformer import _device, _map, _stack, layer
+
+
+def init_zamba(cfg: ArchConfig, *, generator: torch.Generator, device="cuda",
+               dtype=torch.float32):
+    """cfg.shared_attn_every Mamba2 layers per group; ONE shared attention
+    (+MLP) block reused after each group. Random weights from ``generator``
+    at the JAX initialisers' scales."""
+    device = _device(device)
+    per = cfg.shared_attn_every
+    n_groups = cfg.n_layers // per
+    params = {
+        "embed": embed_init(generator, cfg.vocab, cfg.d_model, dtype, device=device),
+        "lm_head": dense_init(generator, cfg.d_model, cfg.vocab, dtype, device=device),
+    }
+    stacked = _stack([init_mamba2(generator, cfg.d_model, cfg.ssm, dtype, device=device)
+                      for _ in range(cfg.n_layers)])
+    params["mamba"] = _map(lambda t: t.reshape(n_groups, per, *t.shape[1:]), stacked)
+    params["shared"] = {
+        "ln1": init_rmsnorm(cfg.d_model, dtype, device=device),
+        "attn": init_attention(generator, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim,
+                               dtype, device=device),
+        "ln2": init_rmsnorm(cfg.d_model, dtype, device=device),
+        "mlp": init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.gated_mlp, dtype, device=device),
+    }
+    params["mamba_ln"] = init_rmsnorm(cfg.d_model, dtype, device=device)
+    params["ln_f"] = init_rmsnorm(cfg.d_model, dtype, device=device)
+    return params
+
+
+def _groups(cfg: ArchConfig) -> tuple[int, int]:
+    return cfg.n_layers // cfg.shared_attn_every, cfg.shared_attn_every
+
+
+def zamba_forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
+                  compute_dtype=torch.bfloat16, use_kernel: bool = True) -> torch.Tensor:
+    """tokens (B, S) integer -> logits (B, S, vocab) in fp32."""
+    x = params["embed"][tokens].to(compute_dtype)
+    shared = params["shared"]
+    attn_fn = flash_attn_fn if use_kernel else None
+    n_groups, per = _groups(cfg)
+    for g in range(n_groups):
+        gp = layer(params["mamba"], g)
+        for i in range(per):
+            h = rms_norm(x, params["mamba_ln"], use_kernel=use_kernel)
+            x = x + mamba2_apply(h, layer(gp, i), cfg.ssm, use_kernel=use_kernel)
+        # the shared attention block (the same params after every group)
+        x = x + gqa_attention(rms_norm(x, shared["ln1"], use_kernel=use_kernel),
+                              shared["attn"], cfg.n_heads, cfg.n_kv, rope=cfg.rope,
+                              rope_theta=cfg.rope_theta, attn_fn=attn_fn, use_kernel=use_kernel)
+        x = x + mlp(rms_norm(x, shared["ln2"], use_kernel=use_kernel), shared["mlp"],
+                    cfg.activation, use_kernel=use_kernel)
+    x = rms_norm(x, params["ln_f"], use_kernel=use_kernel)
+    return linear(x, params["lm_head"], use_kernel).float()
+
+
+def zamba_init_cache(cfg: ArchConfig, batch: int, s_max: int, dtype=torch.bfloat16, *,
+                     device="cuda"):
+    """Conv and SSM states per Mamba2 layer, and one KV cache per group (the
+    shared block runs once per group)."""
+    device = _device(device)
+    s = cfg.ssm
+    d_in = s.expansion * cfg.d_model
+    n_h = d_in // s.head_dim
+    n_groups, per = _groups(cfg)
+    kv = (n_groups, batch, s_max, cfg.n_kv, cfg.head_dim)
+    return {
+        "conv": torch.zeros((n_groups, per, batch, s.conv_width - 1, d_in), dtype=dtype,
+                            device=device),
+        "ssm": torch.zeros((n_groups, per, batch, n_h, s.head_dim, s.state_dim),
+                           dtype=torch.float32, device=device),
+        "k": torch.zeros(kv, dtype=dtype, device=device),
+        "v": torch.zeros(kv, dtype=dtype, device=device),
+    }
+
+
+def zamba_decode_step(params, cfg: ArchConfig, cache, tokens: torch.Tensor, pos: torch.Tensor,
+                      *, compute_dtype=torch.bfloat16, use_kernel: bool = True):
+    """tokens (B, 1) integer; pos (B,) integer -> (logits (B, vocab), new cache).
+
+    The cache passed in is not changed.
+    """
+    x = params["embed"][tokens].to(compute_dtype)
+    shared = params["shared"]
+    n_groups, per = _groups(cfg)
+    conv_n, ssm_n, k_n, v_n = [], [], [], []
+    for g in range(n_groups):
+        gp = layer(params["mamba"], g)
+        for i in range(per):
+            y, cc, sc = mamba2_decode(rms_norm(x, params["mamba_ln"], use_kernel=use_kernel),
+                                      layer(gp, i), cfg.ssm, cache["conv"][g, i],
+                                      cache["ssm"][g, i], use_kernel=use_kernel)
+            x = x + y
+            conv_n.append(cc)
+            ssm_n.append(sc)
+        out, k_c, v_c = gqa_decode_attention(
+            rms_norm(x, shared["ln1"], use_kernel=use_kernel), shared["attn"], cfg.n_heads,
+            cfg.n_kv, cache["k"][g], cache["v"][g], pos, rope=cfg.rope,
+            rope_theta=cfg.rope_theta, use_kernel=use_kernel)
+        x = x + out
+        x = x + mlp(rms_norm(x, shared["ln2"], use_kernel=use_kernel), shared["mlp"],
+                    cfg.activation, use_kernel=use_kernel)
+        k_n.append(k_c)
+        v_n.append(v_c)
+    x = rms_norm(x, params["ln_f"], use_kernel=use_kernel)
+    logits = linear(x[:, 0], params["lm_head"], use_kernel).float()
+
+    def grouped(ts):
+        t = torch.stack(ts)
+        return t.reshape(n_groups, per, *t.shape[1:])
+
+    return logits, {"conv": grouped(conv_n), "ssm": grouped(ssm_n),
+                    "k": torch.stack(k_n), "v": torch.stack(v_n)}

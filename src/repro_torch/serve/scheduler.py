@@ -5,7 +5,9 @@ prompts of different lengths; the scheduler admits them into a fixed pool
 of sequence slots, teacher-forces prompts (prefill by decode, one step
 function), emits tokens until EOS or ``max_new``, and backfills freed slots
 from the queue. Admission, commit, EOS, ``steps`` and ``utilization``
-follow the reference line for line; the decode step is
+follow the reference line for line, except that an admitted slot's
+recurrent state (the hybrid family's conv and SSM lines) is zeroed, which
+the reference omits; the decode step is
 ``repro_torch.models.api.decode_step`` under ``torch.inference_mode()``,
 through the kernels unless ``use_kernel=False``.
 """
@@ -37,6 +39,10 @@ class Completion:
     steps_in_flight: int
 
 
+# Cache entries that hold recurrent state, laid out (G, per, slots, ...).
+_RECURRENT_STATES = ("conv", "ssm")
+
+
 class ContinuousBatcher:
     """Fixed-slot continuous batching over api.decode_step."""
 
@@ -64,7 +70,15 @@ class ContinuousBatcher:
                 req = self.queue.popleft()
                 self.active[s] = {"req": req, "pos": 0, "out": [],
                                   "start_step": self.steps}
-                # positions >= pos are masked by valid_upto, so no wipe needed.
+                # KV positions >= pos are masked by valid_upto, so the KV
+                # cache needs no wipe; the recurrent conv and SSM states are
+                # not positional, so the slot's lines start again from zero.
+                # (The reference wipes neither and so starts a request from
+                # the previous one's state: ROADMAP.md queue 3, fault 4.)
+                with torch.inference_mode():
+                    for key in _RECURRENT_STATES:
+                        if key in self.cache:
+                            self.cache[key][:, :, s] = 0
 
     def _gather_inputs(self):
         toks = np.zeros((self.slots, 1), np.int64)

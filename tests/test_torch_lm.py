@@ -184,8 +184,19 @@ def test_gelu_is_the_tanh_form():
     assert (out - torch.nn.functional.gelu(x)).abs().max() > 1e-4
 
 
-@pytest.mark.parametrize("family_arch", ["xlstm-350m", "zamba2-2.7b", "kimi-k2-1t-a32b",
-                                         "whisper-base", "llava-next-34b"])
+def test_silu_rounds_as_jax():
+    """Compiled, jax.nn.silu rounds each of x * (1 / (1 + exp(-x))) to bf16;
+    layers.silu does the same, F.silu rounds once."""
+    x = np.random.default_rng(0).standard_normal(4096).astype(np.float32) * 3
+    ref = np.asarray(jax.jit(jax.nn.silu)(jnp.asarray(x, jnp.bfloat16)), np.float32)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    ours = layers.silu(xt).float().numpy()
+    assert (ours != ref).mean() < 0.01
+    assert (torch.nn.functional.silu(xt).float().numpy() != ref).mean() > 0.2
+
+
+@pytest.mark.parametrize("family_arch", ["xlstm-350m", "kimi-k2-1t-a32b", "whisper-base",
+                                         "llava-next-34b"])
 def test_other_families_not_ported(family_arch):
     cfg = jax_get_config(family_arch).reduced()
     # the JAX config dataclass is another class; rebuild it as the port's

@@ -28,6 +28,8 @@ def test_import_loads_no_jax_and_no_reference():
     assert "repro_torch.kernels.conv2d.ops" in mods and "repro_torch.models.cnn" in mods
     assert {"repro_torch.configs", "repro_torch.kernels.matmul.ops",
             "repro_torch.kernels.rmsnorm.ops", "repro_torch.kernels.flash_attention.ops",
+            "repro_torch.kernels.ssd.ops", "repro_torch.models.ssm",
+            "repro_torch.models.recurrent", "repro_torch.configs.zamba2_2_7b",
             "repro_torch.models.transformer", "repro_torch.models.api",
             "repro_torch.serve.scheduler", "repro_torch.launch.serve"} <= set(mods)
     code = ("import importlib, sys\n"
@@ -71,7 +73,7 @@ def test_chip_smoke_alone_fails(tmp_path):
     assert '"ok": true' not in r.stdout
 
 
-KERNELS = ["conv2d", "matmul", "rmsnorm", "flash_attention"]
+KERNELS = ["conv2d", "matmul", "rmsnorm", "flash_attention", "ssd"]
 
 
 def test_every_kernel_is_built_from_its_source():
