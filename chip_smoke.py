@@ -33,15 +33,23 @@ any failure raises and exits non-zero.
       plain version and one PyTorch call of the same function
       (``torch.matmul``, ``F.rms_norm``, ``F.scaled_dot_product_attention``;
       the yardstick, never called by the port) and computes the bound.
+      Each matmul row also prints the route, tile and K splits of the
+      kernel's plan and a back-to-back device time of the kernel and of
+      ``torch.matmul``: 50 calls between one pair of CUDA events after an
+      L2 flush, the device kept busy while the host queues them, cycling
+      over copies of the weight so that each call reads it from device
+      memory. The host microseconds per matmul wrapper call on a decode
+      shape are printed beside torch.matmul's.
   (E) Prefill: ``api.prefill_logits`` on StarCoder2-3B at full width and
       depth, bf16 weights from a seeded generator, batch 4 x 512 tokens,
       against ``forward(use_kernel=False)``: normalised error at most
       2e-2, finite (4, 512, 49152) logits, and exactly 181 matmul, 61
-      RMSNorm and 30 flash-attention launches per forward.
+      RMSNorm and 30 flash-attention launches per forward, every matmul
+      on the wgmma route.
   (F) Serving: ``ContinuousBatcher`` on the same weights, 4 slots, 8 seeded
       requests (prompts of 16-64 tokens, 8-16 new tokens each): every
-      request completes; every tick makes exactly 181 matmul and 61
-      RMSNorm launches; on the first 4 ticks the kernel decode step agrees
+      request completes; every tick makes exactly 181 matmul (all wgmma)
+      and 61 RMSNorm launches; on the first 4 ticks the kernel decode step agrees
       with the plain one on the same cache (logits and new caches within
       2e-2 normalised); ``steps`` and ``utilization`` equal a plain-route
       batcher's on the same requests.
@@ -57,8 +65,8 @@ any failure raises and exits non-zero.
   (H) Prefill: ``api.prefill_logits`` on Zamba2-2.7B at full width and depth
       (54 Mamba2 layers, 9 uses of the shared attention block), bf16
       weights from a seeded generator, batch 4 x 512 (two SSD chunks):
-      finite (4, 512, 32000) fp32 logits, exactly 280 matmul, 127 RMSNorm,
-      9 flash-attention and 54 SSD launches per forward. Each of the 63
+      finite (4, 512, 32000) fp32 logits, exactly 280 matmul (all wgmma),
+      127 RMSNorm, 9 flash-attention and 54 SSD launches per forward. Each of the 63
       blocks and the head is held kernel route against plain route fed the
       same input: normalised error at most 2e-2 in bf16 and 2e-4 in fp32.
       The end-to-end errors (bf16 and fp32) are printed, not gated: with
@@ -67,7 +75,7 @@ any failure raises and exits non-zero.
       itself with its embeddings nudged by 1e-6 (PERF.md, Findings).
   (I) Serving: ``ContinuousBatcher`` on the same weights, 4 slots, 8 seeded
       requests (so slots are reused): every request completes; every tick
-      makes exactly 280 matmul and 127 RMSNorm launches; on ticks 0-3 every
+      makes exactly 280 matmul (all wgmma) and 127 RMSNorm launches; on ticks 0-3 every
       block of the kernel decode step agrees with the plain one fed the
       same input and the same cache lines (its output and its new conv,
       ssm, k and v lines within 2e-2 normalised; the end-to-end logits and
@@ -76,12 +84,16 @@ any failure raises and exits non-zero.
       before its first tick; ``steps`` and ``utilization`` equal a
       plain-route batcher's.
 
-Its last two lines are the kernel summary (one JSON object) and the result
+Then it holds the bf16 matmul of both LMs to torch.matmul in the same run:
+the prefill sum of single calls at most 4x torch.matmul's, the decode tick's
+back-to-back sum at most 2x. Its last two lines are the kernel summary (one
+JSON object) and the result
 ``{"ok": true, "device": {...}}``. There is no CPU fallback: without a CUDA
 device it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import statistics
@@ -104,6 +116,7 @@ from repro_torch.kernels.conv2d.ref import conv2d_ref  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import attn_fn as flash_attn_fn  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.matmul.matmul import plan_for  # noqa: E402
 from repro_torch.kernels.matmul.ops import matmul  # noqa: E402
 from repro_torch.kernels.matmul.ref import matmul_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm.ops import rmsnorm  # noqa: E402
@@ -135,6 +148,10 @@ def check(ok: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
+L2_BYTES = 50 * 2**20  # the H100's L2 cache
+B2B_REPS = 50
+
+
 def time_ms(fn, warmup: int = 2, reps: int = 10) -> float:
     """Median device time of one call, CUDA events around each call."""
     for _ in range(warmup):
@@ -148,6 +165,36 @@ def time_ms(fn, warmup: int = 2, reps: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+@functools.cache
+def _l2_flush() -> torch.Tensor:
+    return torch.empty(2 * L2_BYTES, dtype=torch.uint8, device="cuda")
+
+
+def b2b_ms(fn, reps: int = B2B_REPS) -> float:
+    """Device time of one call of ``fn(i)``, from ``reps`` calls back to back
+    between one pair of CUDA events. The L2 is flushed first and the device
+    is kept busy (``torch.cuda._sleep``) while the host queues the calls, so
+    the events time the device, not the host's launch path."""
+    for i in range(3):
+        fn(i)
+    torch.cuda.synchronize()
+    _l2_flush().zero_()
+    torch.cuda._sleep(20_000_000)  # ~10 ms at the H100's clocks
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(reps):
+        fn(i)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def l2_copies(b: torch.Tensor, reps: int = B2B_REPS) -> list:
+    """Copies of b, enough that b2b_ms, cycling over them, reads each one from
+    device memory as a decode tick reads each weight once."""
+    return [b] + [b.clone() for _ in range(min(reps, -(-2 * L2_BYTES // b.nbytes)) - 1)]
 
 
 def max_err_within(out, ref, tol: float) -> float:
@@ -374,6 +421,14 @@ def expected_launches(cfg, decode: bool = False) -> dict:
 def reset_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+    matmul.launches_by_route = dict.fromkeys(matmul.launches_by_route, 0)
+
+
+def check_wgmma(where: str) -> None:
+    """Every bf16 product of the run just counted took the wgmma route."""
+    check(matmul.launches_by_route["wgmma"] == matmul.launches,
+          f"{where}: matmul routes {matmul.launches_by_route}, expected all "
+          f"{matmul.launches} on wgmma")
 
 
 def counts() -> dict:
@@ -406,10 +461,14 @@ def timed_row(kernel, plain, library, nbytes, ops, dtype, **shape) -> dict:
 
 def print_row(phase: str, tag: str, dtype, desc: str, row: dict) -> None:
     lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
+    extra = ""
+    if "route" in row:
+        extra = (f"  {row['route']} {row['tile']} splits {row['splits']}  back to back: "
+                 f"kernel {row['b2b_ms']:.4f} ms  library {row['b2b_library_ms']:.4f} ms")
     print(f"{phase} {name_of(dtype):8s} {tag:15s} {desc}: max_abs_err {row['max_abs_err']:.3e}  "
           f"kernel {row['ms']:.4f} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']})  "
           f"plain {row['plain_ms']:.4f} ms  library {lib}  "
-          f"x{row['count']} per {row['per']}")
+          f"x{row['count']} per {row['per']}{extra}")
 
 
 def lm_kernel_rows(cfg, gen, phase: str) -> dict:
@@ -430,9 +489,13 @@ def lm_kernel_rows(cfg, gen, phase: str) -> dict:
                 row = timed_row(lambda: matmul(a, b), lambda: matmul_ref(a, b),
                                 lambda: torch.matmul(a, b), el * (m * k + k * n + m * n),
                                 2 * m * k * n, dtype, m=m, k=k, n=n, count=count, per=per)
+                bs = l2_copies(b)
+                row.update(plan_for(a, b)._asdict(),
+                           b2b_ms=b2b_ms(lambda i: matmul(a, bs[i % len(bs)])),
+                           b2b_library_ms=b2b_ms(lambda i: torch.matmul(a, bs[i % len(bs)])))
                 print_row(phase, "matmul", dtype, f"M={m} K={k} N={n}", row)
                 mm_rows.append(row)
-                del a, b
+                del a, b, bs
         rms_rows = []
         for per, m in (("prefill", rows_m), ("decode tick", SLOTS)):
             for d, count in lm_norms(cfg).items():
@@ -483,13 +546,45 @@ def phase_d(gen) -> dict:
                                  attention_ref(q, k, v, causal=causal, window=win), TOL[dtype])
             print(f"D {name_of(dtype):8s} flash B={b} S={s} Sk={sk} H={h} KV={kv} hd={hd} "
                   f"causal={causal} window={win}: max_abs_err {err:.3e}")
-    return lm_kernel_rows(get_config(LM_ARCH), gen, "D")
+    cfg = get_config(LM_ARCH)
+    print_host_path("D", cfg)
+    return lm_kernel_rows(cfg, gen, "D")
+
+
+def host_us_per_call(fn, calls: int = 200) -> float:
+    """Host time of one call, queued without waiting for the device."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def print_host_path(phase: str, cfg) -> None:
+    """Host microseconds per matmul wrapper call on the decode tick's first
+    projection, beside torch.matmul's (operands from a generator of their
+    own, so the seeded draws of the later phases do not move)."""
+    k, n = next(iter(lm_products(cfg)))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    a, b = randn((SLOTS, k), torch.bfloat16, gen), randn((k, n), torch.bfloat16, gen)
+    print(f"{phase} bfloat16 matmul host path M={SLOTS} K={k} N={n}: wrapper "
+          f"{host_us_per_call(lambda: matmul(a, b)):.1f} us per call, torch.matmul "
+          f"{host_us_per_call(lambda: torch.matmul(a, b)):.1f} us per call")
 
 
 def lm_summary(rows, per: str) -> dict:
     """Per-shape numbers summed over one prefill forward or one decode tick."""
     rows = [r for r in rows if r["per"] == per]
-    tot = {key: sum(r[key] * r["count"] for r in rows) for key in ("ms", "plain_ms", "bound_ms")}
+    keys = ("ms", "plain_ms", "bound_ms") + (("b2b_ms", "b2b_library_ms") if "route" in rows[0]
+                                             else ())
+    tot = {key: sum(r[key] * r["count"] for r in rows) for key in keys}
+    if "route" in rows[0]:
+        tot["routes"] = {route: sum(r["count"] for r in rows if r["route"] == route)
+                         for route in matmul.launches_by_route}
     tot["library_ms"] = (None if any(r["library_ms"] is None for r in rows)
                          else sum(r["library_ms"] * r["count"] for r in rows))
     ops_ms = sum(r["bound_ms"] * r["count"] for r in rows if r["bound_by"] == "operations")
@@ -518,6 +613,8 @@ def phase_e(gen):
             walls.append((time.perf_counter() - t0) * 1e3)
             got = counts()
             check(got == want, f"prefill launches {got}, expected {want}")
+            check_wgmma("StarCoder2 prefill")
+            got["matmul_routes"] = dict(matmul.launches_by_route)
         ref = api.prefill_logits(params, cfg, batch, use_kernel=False)
     check(tuple(logits.shape) == (PREFILL_BATCH, PREFILL_SEQ, cfg.vocab),
           f"logits shape {tuple(logits.shape)}")
@@ -549,6 +646,7 @@ def phase_f(params, cfg) -> dict:
     for r in reqs:
         b.submit(r)
     ticks, total = [], {name: 0 for name in WRAPPERS}
+    total["matmul_routes"] = dict.fromkeys(matmul.launches_by_route, 0)
     max_logit_err = max_cache_err = 0.0
     while True:
         if b.steps < 4:  # the kernel decode step against the plain one, on the same cache
@@ -573,8 +671,11 @@ def phase_f(params, cfg) -> dict:
         ticks.append((time.perf_counter() - t0) * 1e3)
         got = counts()
         check(got == want, f"tick {b.steps}: launches {got}, expected {want}")
-        for name in total:
+        check_wgmma(f"{cfg.name} tick {b.steps}")
+        for name in WRAPPERS:
             total[name] += got[name]
+        for route, n in matmul.launches_by_route.items():
+            total["matmul_routes"][route] += n
     done = {c.rid: c for c in b.done}
     check(sorted(done) == [r.rid for r in reqs], f"completed {sorted(done)}")
     check(all(len(done[r.rid].tokens) == r.max_new for r in reqs), "a request stopped early")
@@ -744,6 +845,8 @@ def phase_h(gen):
             walls.append((time.perf_counter() - t0) * 1e3)
             got = counts()
             check(got == want, f"prefill launches {got}, expected {want}")
+            check_wgmma("Zamba2 prefill")
+            got["matmul_routes"] = dict(matmul.launches_by_route)
         plain16 = api.prefill_logits(params, cfg, batch, use_kernel=False)
         err16 = normalised_err(logits, plain16)
         blocks16, chain16 = hybrid_block_errors(params, cfg, tokens, torch.bfloat16, logits,
@@ -857,6 +960,7 @@ def phase_i(params, cfg) -> dict:
     for r in reqs:
         b.submit(r)
     ticks, total = [], {name: 0 for name in WRAPPERS}
+    total["matmul_routes"] = dict.fromkeys(matmul.launches_by_route, 0)
     errs = {key: 0.0 for key in ("logits", "conv", "ssm", "k", "v")}
     block_err, chain_err, admitted_later = ("", 0.0), 0.0, 0
     while True:
@@ -893,8 +997,11 @@ def phase_i(params, cfg) -> dict:
         ticks.append((time.perf_counter() - t0) * 1e3)
         got = counts()
         check(got == want, f"tick {b.steps}: launches {got}, expected {want}")
-        for name in total:
+        check_wgmma(f"{cfg.name} tick {b.steps}")
+        for name in WRAPPERS:
             total[name] += got[name]
+        for route, n in matmul.launches_by_route.items():
+            total["matmul_routes"][route] += n
     done = {c.rid: c for c in b.done}
     check(sorted(done) == [r.rid for r in reqs], f"completed {sorted(done)}")
     check(all(len(done[r.rid].tokens) == r.max_new for r in reqs), "a request stopped early")
@@ -928,6 +1035,24 @@ def phase_i(params, cfg) -> dict:
     return dict(total, ticks=b.steps, per_tick=want)
 
 
+def matmul_floors(rows, hybrid_rows) -> None:
+    """The redesigned matmul against torch.matmul in this run, bf16: the
+    prefill sum of single calls at most 4x torch.matmul's, the decode tick's
+    back-to-back sum at most 2x."""
+    for arch, by in ((LM_ARCH, rows["matmul"]), (HYBRID_ARCH, hybrid_rows["matmul"])):
+        pre = lm_summary(by[torch.bfloat16], "prefill")
+        tick = lm_summary(by[torch.bfloat16], "decode tick")
+        r_pre, r_tick = pre["ms"] / pre["library_ms"], tick["b2b_ms"] / tick["b2b_library_ms"]
+        print(f"matmul {arch} bf16: prefill {pre['ms']:.3f} ms against torch.matmul "
+              f"{pre['library_ms']:.3f} ms ({r_pre:.2f}x; bound {pre['bound_ms']:.3f} ms, "
+              f"{pre['bound_ms'] / pre['ms']:.1%} of it); decode tick back to back "
+              f"{tick['b2b_ms']:.3f} ms against {tick['b2b_library_ms']:.3f} ms ({r_tick:.2f}x; "
+              f"bound {tick['bound_ms']:.3f} ms, {tick['bound_ms'] / tick['b2b_ms']:.1%} of it)")
+        check(r_pre <= 4 and r_tick <= 2,
+              f"{arch}: matmul at {r_pre:.2f}x torch.matmul at prefill (floor 4x), "
+              f"{r_tick:.2f}x back to back at decode (floor 2x)")
+
+
 def lm_entries(rows, launches, serving, hybrid_rows, hybrid_launches, hybrid_serving) -> list:
     """One entry per LM kernel: StarCoder2-3B's prefill (phases D-F) at the top
     level with Zamba2-2.7B's (phases G-I) beside it; the SSD runs on Zamba2 only."""
@@ -939,6 +1064,9 @@ def lm_entries(rows, launches, serving, hybrid_rows, hybrid_launches, hybrid_ser
             out["decode_tick"] = {"launches": serve["per_tick"][name],
                                   **lm_summary(by[torch.bfloat16], "decode tick")}
         out["serving_launches"] = serve[name]
+        if name == "matmul":
+            out["launches_by_route"] = prefill["matmul_routes"]
+            out["serving_launches_by_route"] = serve["matmul_routes"]
         return out
 
     entries = []
@@ -974,7 +1102,7 @@ def main() -> int:
     print(f"setup: built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     for name in sorted(libs):
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"setup: {name}: {line.strip()}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -996,6 +1124,7 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
+    matmul_floors(lm_rows, hybrid_rows)
     entry = {"name": "conv2d", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
              "dtype": "float32", "launches": launches[torch.float32],
              **vgg_forward_summary(rows[torch.float32]),

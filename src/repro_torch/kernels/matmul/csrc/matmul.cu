@@ -1,54 +1,68 @@
-// Tiled matrix product C = A @ B with an fp32 accumulator, for Hopper.
+// Matrix product C = A @ B with an fp32 accumulator, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel repro/kernels/matmul/matmul.py::matmul_blocked
 // (wrapper repro/kernels/matmul/ops.py::matmul). It computes the same
 // function: A (M, K) @ B (K, N), both fp32 or both bf16, row-major, summed
 // in fp32 and cast to the output type (fp32 or bf16). There is no padding:
-// the tile loaders check bounds and write zeros past the edges.
+// the loads stop at the edges and the stores check bounds.
 //
-// What bounds it on the H100. At StarCoder2-3B's prefill (M = 2048 rows of
-// activations against K x N weights of 3072 x 3072 up to 3072 x 49152) a
-// product does 2*M*K*N operations on (M*K + K*N + M*N) elements: hundreds
-// of operations per byte, so it is bound by operations, and in bf16 the
-// bound is the tensor cores' 989 TFLOP/s. This kernel runs on the CUDA
-// cores in fp32 (bf16 is widened on the load), so its ceiling is the
-// 67 TFLOP/s fp32 rate. At decode (M = 4) every weight is used for 4 rows
-// only: a product is bound by reading B once, 6.4 GB per decode step of
-// the model, 1.9 ms at 3.35 TB/s.
+// What bounds it on the H100. At prefill (M = 2048 rows of activations
+// against K x N weights of 2560 x 80 up to 3072 x 49152) a product does
+// 2*M*K*N operations on (M*K + K*N + M*N) elements, hundreds of operations
+// per byte: bound by operations, in bf16 by the tensor cores' 989 TFLOP/s.
+// At decode (M = 4 rows, one per serving slot) every weight is used for 4
+// rows only: a product is bound by reading B once, 3.35 TB/s.
 //
-// What the design does about it.
-//  * Two tile shapes. For M > 64, a block computes a 128 x 128 tile of C
-//    with 256 threads, each holding an 8 x 8 block of fp32 sums in
-//    registers: per K step it reads 8 + 8 values from shared memory (as
-//    16-byte loads) for 64 FMAs. For M <= 64 (decode) the block is
-//    16 x 128 (one row and 8 columns a thread), so a 4-row product wastes
-//    12 of 16 rows, not 124 of 128.
-//  * Tiles of A (stored transposed, so a thread's rows are contiguous) and
-//    B go through shared memory one K step at a time; the next step's
-//    tiles are loaded into registers while the current one is computed.
-//  * Split K. When the tiles of C give fewer than two blocks per SM (every
-//    decode product, and the narrow K/V projections at prefill), the K
-//    range is cut into chunks of at least 256, each block writes an fp32
-//    partial tile into a workspace the wrapper allocates, and a second
-//    kernel adds the partials in a fixed order and casts. So the 24 tiles
-//    of a 4 x 3072 decode product still keep ~264 blocks reading weights.
-//  * Tensor cores (wgmma), TMA and a multi-stage pipeline are later work.
+// What the design does about it: two routes, chosen by the Python plan
+// (matmul.py) and checked here.
 //
-// The kernels allocate nothing, launch on the stream they are given and
-// the entry point returns cudaGetLastError(); the Python wrapper raises
-// when that is not 0.
+//  * wgmma (bf16 operands whose rows are multiples of 16 bytes, K % 8 == 0
+//    and N % 8 == 0, at 16-byte-aligned addresses: what TMA takes). A
+//    block computes a BM x 128 tile of C, BM = 128 (two consumer
+//    warpgroups of 64 rows) for M > 64, BM = 64 (one) for M <= 64. One
+//    producer warp keeps a ring of 4 shared-memory stages full with
+//    TMA loads of a BM x 64 tile of A and a 64 x 128 tile of B (two
+//    64-wide boxes), 128-byte swizzled; each stage has a "full" mbarrier
+//    (the TMA bytes arrived) and an "empty" one (every consumer thread is
+//    done with it). The consumers run wgmma m64n128k16 (bf16 -> fp32, B
+//    MN-major through the transpose bit) on each stage, keep one group in
+//    flight and release a stage once the group that read it has retired.
+//    The fp32 sums go from registers to C (cast) or to the split-K
+//    workspace, with bounds checks on the ragged edge of M and N. Rows of
+//    A past M are zero-filled by TMA and cost no bytes, so at decode the
+//    64-row tile wastes only tensor work, which stays under the bytes
+//    bound (2*64*K*N at 989 TFLOP/s is 0.13 ps per weight, reading it
+//    0.60 ps): the decode path is this kernel on 64-row tiles, split along
+//    K so that ~2 blocks per SM stream B. Blocks walk M fastest, so the
+//    blocks in flight share a column of B tiles and A stays in L2.
+//  * simt (fp32, and bf16 operands TMA cannot take): the CUDA-core kernel
+//    of the port's first version. 128 x 128 tiles (256 threads, an 8 x 8
+//    block of sums each) for M > 64, 16 x 128 for M <= 64; tiles of A
+//    (transposed) and B staged through shared memory, the next K step
+//    loaded into registers while the current one is computed. Its ceiling
+//    is the 67 TFLOP/s fp32 rate; fp32 stays here because TF32 tensor
+//    cores would miss the fp32 tolerance.
+//
+// Split K (both routes). When the tiles of C give fewer than two blocks
+// per SM (decode, the narrow K/V, B/C and dt projections at prefill), K is
+// cut into chunks of at least 256, each block writes an fp32 partial tile
+// into a workspace the wrapper allocates, and a second kernel adds the
+// partials in a fixed order and casts, so results are deterministic.
+//
+// The kernels allocate nothing and launch on the stream they are given;
+// the entry point returns cudaGetLastError() (or the error of a refused
+// argument) and the Python wrapper raises when that is not 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstddef>
+#include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
-
-constexpr int THREADS = 256;
-constexpr int SMALL_M = 64;        // M at or below this takes the 16-row tile
-constexpr int MIN_KCHUNK = 256;    // split K no finer than this
-constexpr int BLOCKS_PER_SM = 2;   // split K until the grid has this many blocks per SM
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -61,6 +75,24 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
+
+int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
+
+// The K chunk of `splits` splits in steps of bk; 0 if the count does not
+// come back from the chunk (the plan settles on counts that do).
+int kchunk_of(int k, int splits, int bk) {
+  if (splits < 1 || splits > k) return 0;
+  const int kchunk = ceil_div(ceil_div(k, splits), bk) * bk;
+  return ceil_div(k, kchunk) == splits ? kchunk : 0;
+}
+
+// ---------------------------------------------------------------------------
+// simt route: CUDA cores, fp32 arithmetic
+// ---------------------------------------------------------------------------
+
+namespace simt {
+
+constexpr int THREADS = 256;
 
 template <int N>
 __device__ __forceinline__ void load_vec(const float* p, float (&v)[N]) {
@@ -175,94 +207,286 @@ matmul_tiled(const TA* __restrict__ a, const TA* __restrict__ b, TC* __restrict_
   }
 }
 
+template <typename TL, typename TA, typename TC>
+cudaError_t launch(const void* a, const void* b, void* c, float* ws, int m, int n, int k,
+                   int splits, cudaStream_t stream) {
+  const int kchunk = kchunk_of(k, splits, TL::BK);
+  if (kchunk == 0 || m > 65535 * TL::BM) return cudaErrorInvalidValue;
+  const dim3 grid(ceil_div(n, TL::BN), ceil_div(m, TL::BM), splits);
+  matmul_tiled<TL, TA, TC><<<grid, THREADS, 0, stream>>>(
+      static_cast<const TA*>(a), static_cast<const TA*>(b), static_cast<TC*>(c),
+      splits > 1 ? ws : nullptr, m, n, k, kchunk);
+  return cudaGetLastError();
+}
+
+template <typename TA, typename TC>
+cudaError_t dispatch(int tile, const void* a, const void* b, void* c, float* ws, int m, int n,
+                     int k, int splits, cudaStream_t stream) {
+  switch (tile) {
+    case 0: return launch<Large, TA, TC>(a, b, c, ws, m, n, k, splits, stream);
+    case 1: return launch<Small, TA, TC>(a, b, c, ws, m, n, k, splits, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace simt
+
+// ---------------------------------------------------------------------------
+// wgmma route: TMA + mbarrier ring + tensor cores, bf16 operands
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+constexpr int BN = 128, BK = 64;
+constexpr int ATOM = 64;                  // bf16 values in one 128-byte swizzle row
+constexpr int ATOM_BYTES = BK * ATOM * 2;  // one 64 (k) x 64 (n) box of B: 8 KB
+// Descriptor strides: from one group of 8 rows (8 x 128 bytes) to the next,
+// for A's rows of M and B's rows of k; B's atoms along N sit ATOM_BYTES apart.
+constexpr uint32_t GROUP_BYTES = 1024;
+
+template <int CONSUMERS_, int STAGES_, int MIN_BLOCKS_>
+struct Cfg {
+  static constexpr int CONSUMERS = CONSUMERS_, STAGES = STAGES_, MIN_BLOCKS = MIN_BLOCKS_;
+  static constexpr int BM = 64 * CONSUMERS;
+  static constexpr int THREADS = 128 * CONSUMERS + 32;  // consumer warpgroups, producer warp
+  static constexpr int A_BYTES = BM * BK * 2;
+  static constexpr int B_BYTES = BK * BN * 2;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  // the stages, 1024-byte aligned inside the block's window, then the barriers
+  static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
+  static_assert(A_BYTES % 1024 == 0 && B_BYTES % 1024 == 0, "1024-byte aligned tiles");
+};
+// At prefill one block per SM with 4 stages (128 KB) beat two blocks of 3
+// stages and one of 6 on both LMs' shapes (tools/matmul_stage_sweep.py,
+// numbers in PERF.md). At decode two blocks of 4 stages (96 KB each) keep
+// 128 KB of weights in flight per SM.
+using Large = Cfg<2, 4, 1>;  // 128 x 128 tiles, M > 64
+using Small = Cfg<1, 4, 2>;  // 64 x 128 tiles, M <= 64 (decode)
+
+template <typename CF, typename TC>
+__global__ void __launch_bounds__(CF::THREADS, CF::MIN_BLOCKS)
+matmul_wgmma(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+             TC* __restrict__ c, float* __restrict__ ws, int m, int n, int k, int kchunk) {
+  using namespace hopper;
+  constexpr int STAGES = CF::STAGES, BM = CF::BM;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t full0 = base + STAGES * CF::STAGE_BYTES, empty0 = full0 + STAGES * 8;
+
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int kb = blockIdx.z * kchunk;
+  const int n_k = (min(k, kb + kchunk) - kb + BK - 1) / BK;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);                       // the producer's expect_tx
+      mbar_init(empty0 + 8 * s, CF::CONSUMERS * 128);  // every consumer thread
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= CF::CONSUMERS * 128) {  // the producer warp; one thread issues
+    if (tid == CF::CONSUMERS * 128) {
+      for (int it = 0; it < n_k; ++it) {
+        const int s = it % STAGES;
+        mbar_wait(empty0 + 8 * s, ((it / STAGES) & 1) ^ 1);
+        const uint32_t full = full0 + 8 * s, sa = base + s * CF::STAGE_BYTES;
+        const uint32_t sb = sa + CF::A_BYTES;
+        const int k0 = kb + it * BK;
+        // A box counts whole, zero fill included. A second atom of B wholly
+        // past N is not loaded: the columns it would feed are not stored.
+        const bool two = n0 + ATOM < n;
+        mbar_arrive_expect_tx(full, CF::A_BYTES + (two ? 2 : 1) * ATOM_BYTES);
+        tma_load_2d(sa, &map_a, full, k0, m0);
+        tma_load_2d(sb, &map_b, full, n0, k0);
+        if (two) tma_load_2d(sb + ATOM_BYTES, &map_b, full, n0 + ATOM, k0);
+      }
+    }
+    return;
+  }
+
+  const int wgi = tid / 128;  // this consumer warpgroup's 64 rows of the tile
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  fence_operands(acc);
+  for (int it = 0; it < n_k; ++it) {
+    const int s = it % STAGES;
+    mbar_wait(full0 + 8 * s, (it / STAGES) & 1);
+    const uint32_t sa = base + s * CF::STAGE_BYTES + wgi * 64 * 128;
+    const uint32_t sb = base + s * CF::STAGE_BYTES + CF::A_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)  // 16 k a product: 32 bytes along A's rows, 16 rows of B
+      wgmma_m64n128k16(acc, make_desc(sa + kk * 32, 16, GROUP_BYTES),
+                       make_desc(sb + kk * 16 * 128, ATOM_BYTES, GROUP_BYTES));
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's group has retired: release that stage
+    if (it > 0) mbar_arrive(empty0 + 8 * ((it - 1) % STAGES));
+  }
+  wgmma_wait<0>();
+  fence_operands(acc);
+
+  // Fragment of m64n128: warp w of the warpgroup holds rows 16w + lane/4
+  // (+ 8), columns 8j + 2 (lane % 4) (+ 1) in acc[4j + {0, 1}] (+ {2, 3}).
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int row0 = m0 + wgi * 64 + warp * 16 + lane / 4;
+  const int col0 = n0 + 2 * (lane % 4);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = col0 + 8 * j;  // even, and n is a multiple of 8: col + 1 < n too
+    if (col >= n) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row >= m) continue;
+      const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if (ws != nullptr) {
+        *reinterpret_cast<float2*>(ws + ((size_t)blockIdx.z * m + row) * n + col) =
+            make_float2(v0, v1);
+      } else if constexpr (sizeof(TC) == 4) {
+        *reinterpret_cast<float2*>(c + (size_t)row * n + col) = make_float2(v0, v1);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(c + (size_t)row * n + col) =
+            __floats2bfloat162_rn(v0, v1);
+      }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of libcuda, looked up through the runtime (no -lcuda).
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A row-major bf16 (rows, cols) tensor in boxes of box_rows x 64 columns,
+// 128-byte swizzled; reads past the edges give zeros.
+bool encode(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)ATOM, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename CF, typename TC>
+cudaError_t launch(const void* a, const void* b, void* c, float* ws, int m, int n, int k,
+                   int splits, int device, cudaStream_t stream) {
+  const int kchunk = kchunk_of(k, splits, BK);
+  if (kchunk == 0 || k % 8 || n % 8 || ((uintptr_t)a | (uintptr_t)b) % 16 ||
+      ceil_div(n, BN) > 65535)
+    return cudaErrorInvalidValue;
+  CUtensorMap map_a, map_b;
+  if (!encode(&map_a, a, m, k, CF::BM) || !encode(&map_b, b, k, n, BK))
+    return cudaErrorInvalidValue;
+  // Above 48 KB of dynamic shared memory a kernel must opt in, once per device.
+  static std::atomic<unsigned long long> ready{0};
+  const unsigned long long bit = 1ull << (device & 63);
+  if (!(ready.load(std::memory_order_relaxed) & bit)) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        matmul_wgmma<CF, TC>, cudaFuncAttributeMaxDynamicSharedMemorySize, CF::SMEM);
+    if (e != cudaSuccess) return e;
+    ready.fetch_or(bit);
+  }
+  const dim3 grid(ceil_div(m, CF::BM), ceil_div(n, BN), splits);
+  matmul_wgmma<CF, TC><<<grid, CF::THREADS, CF::SMEM, stream>>>(
+      map_a, map_b, static_cast<TC*>(c), splits > 1 ? ws : nullptr, m, n, k, kchunk);
+  return cudaGetLastError();
+}
+
+template <typename TC>
+cudaError_t dispatch(int tile, const void* a, const void* b, void* c, float* ws, int m, int n,
+                     int k, int splits, int device, cudaStream_t stream) {
+  switch (tile) {
+    case 0: return launch<Large, TC>(a, b, c, ws, m, n, k, splits, device, stream);
+    case 1: return launch<Small, TC>(a, b, c, ws, m, n, k, splits, device, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace wg
+
 // c = cast(sum over z of ws[z]), the partials added in order z = 0, 1, ...
 template <typename TC>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(256)
 splitk_reduce(const float* __restrict__ ws, TC* __restrict__ c, size_t mn, int splits) {
-  for (size_t i = (size_t)blockIdx.x * THREADS + threadIdx.x; i < mn;
-       i += (size_t)gridDim.x * THREADS) {
+  for (size_t i = (size_t)blockIdx.x * 256 + threadIdx.x; i < mn; i += (size_t)gridDim.x * 256) {
     float s = 0.f;
     for (int z = 0; z < splits; ++z) s += ws[z * mn + i];
     c[i] = from_f32<TC>(s);
   }
 }
 
-int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
-
-template <typename TL>
-int kchunk_of(int k, int splits) { return ceil_div(ceil_div(k, splits), TL::BK) * TL::BK; }
-
-template <typename TL>
-int plan_splits(int m, int n, int k, int sms) {
-  const long long tiles = (long long)ceil_div(m, TL::BM) * ceil_div(n, TL::BN);
-  const long long want = (long long)BLOCKS_PER_SM * sms;
-  if (tiles >= want || k < 2 * MIN_KCHUNK) return 1;
-  int splits = ceil_div(want, tiles);
-  const int most = k / MIN_KCHUNK;
-  if (splits > most) splits = most;
-  // A split covers whole K steps, so rounding the chunk up may leave fewer
-  // splits; settle on a count that the chunk of that count gives back (the
-  // count only falls, so this ends), so that no split is empty.
-  for (;;) {
-    const int fewer = ceil_div(k, kchunk_of<TL>(k, splits));
-    if (fewer == splits) return splits;
-    splits = fewer;
+template <typename TA, typename TC>
+cudaError_t run(int route, int tile, const void* a, const void* b, void* c, float* ws, int m,
+                int n, int k, int splits, int device, cudaStream_t stream) {
+  if (splits > 1 && ws == nullptr) return cudaErrorInvalidValue;
+  cudaError_t e;
+  if (route == 0) {
+    e = simt::dispatch<TA, TC>(tile, a, b, c, ws, m, n, k, splits, stream);
+  } else if constexpr (sizeof(TA) == 2) {
+    e = route == 1 ? wg::dispatch<TC>(tile, a, b, c, ws, m, n, k, splits, device, stream)
+                   : cudaErrorInvalidValue;
+  } else {
+    e = cudaErrorInvalidValue;  // the wgmma route takes bf16 operands only
   }
-}
-
-template <typename TL, typename TA, typename TC>
-cudaError_t launch(const void* a, const void* b, void* c, float* ws, int m, int n, int k,
-                   int splits, cudaStream_t stream) {
-  if (splits < 1 || splits > k) return cudaErrorInvalidValue;
-  const int kchunk = kchunk_of<TL>(k, splits);
-  if (ceil_div(k, kchunk) != splits || (splits > 1 && ws == nullptr))
-    return cudaErrorInvalidValue;
-  const dim3 grid(ceil_div(n, TL::BN), ceil_div(m, TL::BM), splits);
-  matmul_tiled<TL, TA, TC><<<grid, THREADS, 0, stream>>>(
-      static_cast<const TA*>(a), static_cast<const TA*>(b), static_cast<TC*>(c),
-      splits > 1 ? ws : nullptr, m, n, k, kchunk);
-  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return e;
   const size_t mn = (size_t)m * n;
-  const long long blocks = ((long long)mn + THREADS - 1) / THREADS;
-  splitk_reduce<TC><<<(int)(blocks < 8 * 132 ? blocks : 8 * 132), THREADS, 0, stream>>>(
+  const long long blocks = ((long long)mn + 255) / 256;
+  splitk_reduce<TC><<<(int)(blocks < 8 * 132 ? blocks : 8 * 132), 256, 0, stream>>>(
       ws, static_cast<TC*>(c), mn, splits);
   return cudaGetLastError();
-}
-
-template <typename TA, typename TC>
-cudaError_t dispatch(const void* a, const void* b, void* c, float* ws, int m, int n, int k,
-                     int splits, cudaStream_t stream) {
-  if (m <= SMALL_M) return launch<Small, TA, TC>(a, b, c, ws, m, n, k, splits, stream);
-  return launch<Large, TA, TC>(a, b, c, ws, m, n, k, splits, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// How many K chunks the product is cut into (1: no workspace needed; else
-// the wrapper passes an fp32 workspace of splits * m * n values).
-int repro_matmul_plan(int m, int n, int k, int device, int* splits) {
-  int sms = 0;
-  const cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e != cudaSuccess) return (int)e;
-  *splits = m <= SMALL_M ? plan_splits<Small>(m, n, k, sms) : plan_splits<Large>(m, n, k, sms);
-  return 0;
-}
-
-// in_dtype, out_dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 on success).
+// route: 0 = simt, 1 = wgmma. tile: simt 0 = 128 x 128, 1 = 16 x 128;
+// wgmma 0 = 128 x 128, 1 = 64 x 128. splits > 1 takes an fp32 workspace of
+// splits * m * n values. in_dtype, out_dtype: 0 = float32, 1 = bfloat16.
+// Returns a cudaError_t (0 on success).
 int repro_matmul(const void* a, const void* b, void* c, void* ws, int m, int n, int k,
-                 int splits, int in_dtype, int out_dtype, int device, void* stream) {
-  cudaError_t e = cudaSetDevice(device);
+                 int splits, int route, int tile, int in_dtype, int out_dtype, int device,
+                 void* stream) {
+  int current = -1;
+  cudaError_t e = cudaGetDevice(&current);
+  if (e == cudaSuccess && current != device) e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(ws);
   switch (in_dtype * 2 + out_dtype) {
-    case 0: return (int)dispatch<float, float>(a, b, c, w, m, n, k, splits, st);
-    case 1: return (int)dispatch<float, __nv_bfloat16>(a, b, c, w, m, n, k, splits, st);
-    case 2: return (int)dispatch<__nv_bfloat16, float>(a, b, c, w, m, n, k, splits, st);
-    case 3: return (int)dispatch<__nv_bfloat16, __nv_bfloat16>(a, b, c, w, m, n, k, splits, st);
+    case 0: return (int)run<float, float>(route, tile, a, b, c, w, m, n, k, splits, device, st);
+    case 1:
+      return (int)run<float, __nv_bfloat16>(route, tile, a, b, c, w, m, n, k, splits, device, st);
+    case 2:
+      return (int)run<__nv_bfloat16, float>(route, tile, a, b, c, w, m, n, k, splits, device, st);
+    case 3:
+      return (int)run<__nv_bfloat16, __nv_bfloat16>(route, tile, a, b, c, w, m, n, k, splits,
+                                                     device, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -3,14 +3,16 @@
 The counterpart of ``repro/kernels/matmul/ops.py::matmul``: a general
 (M, K) @ (K, N) with an fp32 accumulator, cast to ``out_dtype or a.dtype``.
 There is no padding to block multiples: the kernel checks bounds. A CUDA
-tensor launches the CUDA kernel (or raises); a CPU tensor takes the plain
-version ``matmul_ref``. ``matmul.launches`` counts kernel launches.
+tensor launches the CUDA kernel (or raises) on the route ``matmul.plan_for``
+picks; a CPU tensor takes the plain version ``matmul_ref``.
+``matmul.launches`` counts kernel launches, one per call, and
+``matmul.launches_by_route`` splits them by route (``wgmma``, ``simt``).
 """
 from __future__ import annotations
 
 import torch
 
-from .matmul import DTYPE_CODES, matmul_tiled
+from .matmul import DTYPE_CODES, ROUTES, launch, plan_for
 from .ref import matmul_ref
 
 _MAX_M = 65535 * 128  # CUDA's limit on grid y, in 128-row tiles
@@ -47,9 +49,12 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
     if a.device.type == "cpu":
         return matmul_ref(a, b, out_dtype=out_dtype)
     out = torch.empty((a.shape[0], b.shape[1]), dtype=out_dtype or a.dtype, device=a.device)
-    matmul_tiled(a, b, out)
+    p = plan_for(a, b)
+    launch(a, b, out, p, torch.cuda.current_stream(a.device).cuda_stream)
     matmul.launches += 1
+    matmul.launches_by_route[p.route] += 1
     return out
 
 
 matmul.launches = 0
+matmul.launches_by_route = dict.fromkeys(ROUTES, 0)
