@@ -9,18 +9,28 @@ It builds the port's CUDA kernels from ``src/repro_torch`` (nvcc, sm_90a,
 one process per source, all started together) and then runs nine phases;
 any failure raises and exits non-zero.
 
-  (A) The direct-conv kernel against its plain PyTorch version at every
-      distinct conv shape of VGG-16 at 224x224, batch 8, in fp32 and bf16,
-      and at the small shapes of the kernel tests (odd and even R).
-      Tolerance atol = rtol = 2e-4 in fp32, 2e-2 in bf16. Per VGG shape it
-      times the kernel, the plain version and one cuDNN ``F.conv2d`` call
-      (the yardstick; the port never calls it) with CUDA events, and
-      computes the least time the card could take (bytes over 3.35 TB/s or
-      operations over the published peak of the dtype).
+  (A) The conv kernel against its plain PyTorch version at every distinct
+      conv shape of VGG-16 at 224x224, batch 8, in fp32 and bf16, at the
+      small shapes of the kernel tests (odd and even R), and, in bf16 from
+      a generator of their own, at tests/test_torch_conv2d.py::WGMMA_CASES
+      (each on the wgmma route). Tolerance atol = rtol = 2e-4 in fp32,
+      2e-2 in bf16. Per VGG shape it prints the plan (route ``wgmma`` or
+      ``direct``, pixel box, output channels a block, splits, blocks per
+      SM) and times, with CUDA events, the kernel (the wgmma route's
+      re-layout of x to NHWC and of w to an (R*S*C, K) matrix included),
+      the plain version and one cuDNN ``F.conv2d`` call (the yardstick; the
+      port never calls it), single calls and back to back (50 calls between
+      one pair of events, as the matmul rows of phase D), the re-layout
+      alone back to back, and the host microseconds per call of the
+      wrapper and of cuDNN; and it computes the least time the card could
+      take (bytes over 3.35 TB/s or operations over the published peak of
+      the dtype).
   (B) ``hybrid_forward`` on VGG-16 at 224x224, batch 8, HybridPlan(sp=4,
       n_micro=4), in fp32 and bf16, against ``forward(use_kernel=False)``:
       normalised error max|d| / max|ref| at most 2e-4 (fp32) and 2e-2
-      (bf16), and exactly 13 conv kernel launches per forward.
+      (bf16), and exactly 13 conv kernel launches per forward: in bf16 12
+      on the wgmma route and 1 (the first layer, C = 3) direct, in fp32 13
+      direct.
   (C) The pipelined head at VGG width: 4 x conv(128, 3) as the head, then
       pool(2) and 2 x conv(256, 3), input (8, 128, 112, 112), against
       ``forward(use_kernel=False)`` at 2e-4.
@@ -84,10 +94,11 @@ any failure raises and exits non-zero.
       before its first tick; ``steps`` and ``utilization`` equal a
       plain-route batcher's.
 
-Then it holds the bf16 matmul of both LMs to torch.matmul in the same run:
-the prefill sum of single calls at most 4x torch.matmul's, the decode tick's
-back-to-back sum at most 2x. Its last two lines are the kernel summary (one
-JSON object) and the result
+Then it holds the bf16 conv of VGG-16 to cuDNN in the same run (the sum of
+single calls over one forward at most 1.5x cuDNN's), and the bf16 matmul of
+both LMs to torch.matmul: the prefill sum of single calls at most 4x
+torch.matmul's, the decode tick's back-to-back sum at most 2x. Its last two
+lines are the kernel summary (one JSON object) and the result
 ``{"ok": true, "device": {...}}``. There is no CPU fallback: without a CUDA
 device it exits non-zero and prints no result.
 """
@@ -111,6 +122,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.netinfo import _B, vgg16  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.conv2d.conv2d import plan_for as conv_plan_for  # noqa: E402
+from repro_torch.kernels.conv2d.conv2d import relayout  # noqa: E402
 from repro_torch.kernels.conv2d.ops import conv2d  # noqa: E402
 from repro_torch.kernels.conv2d.ref import conv2d_ref  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import attn_fn as flash_attn_fn  # noqa: E402
@@ -139,6 +152,13 @@ BATCH = 8
 # (N, C, H, W, K, R) of tests/test_kernels.py::CONV_CASES, plus an even R.
 SMALL_CASES = [(1, 16, 16, 16, 32, 3), (2, 3, 20, 24, 64, 5), (1, 8, 10, 10, 16, 1),
                (1, 64, 7, 9, 8, 7), (1, 12, 9, 11, 24, 4)]
+# (N, C, H, W, K, R) of tests/test_torch_conv2d.py::WGMMA_CASES, drawn from
+# a generator of their own so that phases B-I draw what they drew before.
+WGMMA_CASES = [(2, 64, 9, 11, 64, 3), (1, 128, 7, 13, 200, 3), (2, 64, 5, 7, 8, 1),
+               (1, 64, 12, 10, 72, 4), (1, 128, 6, 9, 136, 7), (1, 64, 30, 33, 128, 3),
+               (2, 128, 17, 19, 64, 3)]
+WGMMA_SEED = 15
+CONV_FLOOR = 1.5  # the bf16 VGG conv sum at most this times cuDNN's, same run
 REPLACES = "src/repro/kernels/conv2d/conv2d.py:40"
 SOURCE = "src/repro_torch/kernels/conv2d/csrc/conv2d.cu"
 
@@ -226,14 +246,39 @@ def conv_inputs(n, c, h, w, k, r, dtype, gen):
     return x, (wt * math.sqrt(2.0 / (c * r * r))).to(dtype)
 
 
+def counted_conv(x, wt, route: str):
+    """One conv2d call that must launch once, on ``route``."""
+    before, by = conv2d.launches, dict(conv2d.launches_by_route)
+    out = conv2d(x, wt)
+    check(conv2d.launches == before + 1
+          and conv2d.launches_by_route[route] == by[route] + 1,
+          f"conv2d routes {conv2d.launches_by_route} (before {by}), expected one on {route}")
+    return out
+
+
+def plan_text(p) -> str:
+    return (f"{p.route} box {p.box[0]}x{p.box[1]} n{p.tile_n} splits {p.splits} "
+            f"blocks/SM {p.blocks}" if p.box else p.route)
+
+
 def phase_a(gen) -> dict:
-    """Kernel against plain version; per VGG shape, times and bounds."""
+    """Kernel against plain version; per VGG shape, plan, times and bounds."""
     for dtype in DTYPES:
         for n, c, h, w, k, r in SMALL_CASES:
             x, wt = conv_inputs(n, c, h, w, k, r, dtype, gen)
-            err = max_err_within(conv2d(x, wt), conv2d_ref(x, wt), TOL[dtype])
+            p = conv_plan_for(x, wt)
+            err = max_err_within(counted_conv(x, wt, p.route), conv2d_ref(x, wt), TOL[dtype])
             print(f"A {str(dtype)[6:]:8s} N={n} C={c} H={h} W={w} K={k} R=S={r}: "
-                  f"max_abs_err {err:.3e}")
+                  f"{plan_text(p)}  max_abs_err {err:.3e}")
+    wgen = torch.Generator(device="cuda").manual_seed(WGMMA_SEED)
+    for n, c, h, w, k, r in WGMMA_CASES:
+        x, wt = conv_inputs(n, c, h, w, k, r, torch.bfloat16, wgen)
+        p = conv_plan_for(x, wt)
+        check(p.route == "wgmma", f"WGMMA_CASES {(n, c, h, w, k, r)} planned {p}")
+        err = max_err_within(counted_conv(x, wt, "wgmma"), conv2d_ref(x, wt),
+                             TOL[torch.bfloat16])
+        print(f"A bfloat16 N={n} C={c} H={h} W={w} K={k} R=S={r}: {plan_text(p)}  "
+              f"max_abs_err {err:.3e}")
 
     convs = [l for l in vgg16(224).layers if l.kind == "conv"]
     shapes = sorted({(l.c, l.k, l.h) for l in convs}, key=lambda s: (-s[2], s[0], s[1]))
@@ -243,19 +288,32 @@ def phase_a(gen) -> dict:
         rows = []
         for c, k, h in shapes:
             x, wt = conv_inputs(BATCH, c, h, h, k, 3, dtype, gen)
-            err = max_err_within(conv2d(x, wt), conv2d_ref(x, wt), TOL[dtype])
+            p = conv_plan_for(x, wt)
+            err = max_err_within(counted_conv(x, wt, p.route), conv2d_ref(x, wt), TOL[dtype])
             b_ms, b_by = bound(BATCH, c, h, h, k, 3, dtype)
-            row = dict(c=c, k=k, h=h, max_abs_err=err,
+            row = dict(c=c, k=k, h=h, route=p.route, box=list(p.box), splits=p.splits,
+                       blocks=p.blocks, tile_n=p.tile_n, max_abs_err=err,
                        ms=time_ms(lambda: conv2d(x, wt)),
+                       copies_b2b_ms=(b2b_ms(lambda i: relayout(x, wt))
+                                      if p.route == "wgmma" else 0.0),
                        plain_ms=time_ms(lambda: conv2d_ref(x, wt)),
                        library_ms=time_ms(lambda: F.conv2d(x, wt, padding=1)),
+                       b2b_ms=b2b_ms(lambda i: conv2d(x, wt)),
+                       b2b_library_ms=b2b_ms(lambda i: F.conv2d(x, wt, padding=1)),
+                       host_us=host_us_per_call(lambda: conv2d(x, wt), calls=50),
+                       library_host_us=host_us_per_call(lambda: F.conv2d(x, wt, padding=1),
+                                                        calls=50),
                        bound_ms=b_ms, bound_by=b_by,
                        layers=sum((l.c, l.k, l.h) == (c, k, h) for l in convs))
             rows.append(row)
             print(f"A {str(dtype)[6:]:8s} VGG N={BATCH} C={c:3d} K={k:3d} H=W={h:3d} "
-                  f"x{row['layers']}: max_abs_err {err:.3e}  kernel {row['ms']:.4f} ms  "
-                  f"bound {b_ms:.4f} ms ({b_by})  plain {row['plain_ms']:.4f} ms  "
-                  f"cuDNN {row['library_ms']:.4f} ms")
+                  f"x{row['layers']}: {plan_text(p)}  max_abs_err {err:.3e}  "
+                  f"kernel {row['ms']:.4f} ms  bound {b_ms:.4f} ms ({b_by}), "
+                  f"{b_ms / row['b2b_ms']:.1%} of it back to back  plain "
+                  f"{row['plain_ms']:.4f} ms  cuDNN {row['library_ms']:.4f} ms  back to back: "
+                  f"kernel {row['b2b_ms']:.4f} ms (re-layout {row['copies_b2b_ms']:.4f} ms)  "
+                  f"cuDNN {row['b2b_library_ms']:.4f} ms  host: wrapper {row['host_us']:.1f} us "
+                  f"per call, cuDNN {row['library_host_us']:.1f} us")
             del x, wt
         summary[dtype] = rows
     return summary
@@ -264,15 +322,33 @@ def phase_a(gen) -> dict:
 def vgg_forward_summary(rows) -> dict:
     """Per-layer numbers summed over the 13 convs of one VGG-16 forward."""
     tot = {key: sum(r[key] * r["layers"] for r in rows)
-           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+           for key in ("ms", "plain_ms", "library_ms", "b2b_ms", "copies_b2b_ms",
+                       "b2b_library_ms", "bound_ms")}
     ops_ms = sum(r["bound_ms"] * r["layers"] for r in rows if r["bound_by"] == "operations")
     tot["bound_by"] = "operations" if ops_ms >= tot["bound_ms"] / 2 else "bytes"
     tot["max_abs_err"] = max(r["max_abs_err"] for r in rows)
     return tot
 
 
+def conv_floor(rows) -> None:
+    """The redesigned bf16 conv against cuDNN in this run: the sum of single
+    calls over one VGG-16 forward at most CONV_FLOOR x cuDNN's."""
+    for dtype in DTYPES:
+        tot = vgg_forward_summary(rows[dtype])
+        print(f"conv2d VGG-16 {name_of(dtype)}: {tot['ms']:.3f} ms against cuDNN "
+              f"{tot['library_ms']:.3f} ms ({tot['ms'] / tot['library_ms']:.2f}x); back to back "
+              f"{tot['b2b_ms']:.3f} ms (re-layout {tot['copies_b2b_ms']:.3f} ms) against "
+              f"{tot['b2b_library_ms']:.3f} ms ({tot['b2b_ms'] / tot['b2b_library_ms']:.2f}x); "
+              f"bound {tot['bound_ms']:.3f} ms ({tot['bound_by']}), "
+              f"{tot['bound_ms'] / tot['b2b_ms']:.1%} of it back to back")
+    tot = vgg_forward_summary(rows[torch.bfloat16])
+    ratio = tot["ms"] / tot["library_ms"]
+    check(ratio <= CONV_FLOOR, f"bf16 VGG-16 conv at {ratio:.2f}x cuDNN (floor {CONV_FLOOR}x)")
+
+
 def phase_b(gen) -> dict:
-    """Full-width VGG-16 hybrid forward; returns launches per forward by dtype."""
+    """Full-width VGG-16 hybrid forward; returns launches per forward by dtype
+    (the total and by route)."""
     net = vgg16(224)
     plan = HybridPlan(sp=4, n_micro=4)
     launches = {}
@@ -282,15 +358,20 @@ def phase_b(gen) -> dict:
         hybrid_forward(params, net, x, plan)  # warm-up
         torch.cuda.synchronize()
         walls = []
+        want = {"direct": 1, "wgmma": 12} if dtype == torch.bfloat16 else \
+            {"direct": 13, "wgmma": 0}
         for _ in range(3):
             conv2d.launches = 0
+            conv2d.launches_by_route = dict.fromkeys(conv2d.launches_by_route, 0)
             t0 = time.perf_counter()
             out = hybrid_forward(params, net, x, plan)
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
-            check(conv2d.launches == 13,
-                  f"{conv2d.launches} conv2d launches in one forward, expected 13")
-        launches[dtype] = conv2d.launches
+            check(conv2d.launches == 13 and conv2d.launches_by_route == want,
+                  f"{conv2d.launches} conv2d launches in one forward, by route "
+                  f"{conv2d.launches_by_route}; expected 13, {want}")
+        launches[dtype] = {"launches": conv2d.launches,
+                           "launches_by_route": dict(conv2d.launches_by_route)}
         ref = forward(params, net, x, use_kernel=False)
         check(tuple(out.shape) == (BATCH, 512, 7, 7), f"output shape {tuple(out.shape)}")
         check(bool(torch.isfinite(out).all()), "non-finite forward output")
@@ -298,7 +379,8 @@ def phase_b(gen) -> dict:
         check(err <= TOL[dtype], f"hybrid forward vs plain: normalised error {err:.3e}")
         wall = statistics.median(walls)
         print(f"B {str(dtype)[6:]:8s} VGG-16 224x224 N={BATCH} hybrid sp=4 n_micro=4: "
-              f"normalised error {err:.3e}  launches {launches[dtype]}  "
+              f"normalised error {err:.3e}  launches {conv2d.launches} "
+              f"{conv2d.launches_by_route}  "
               f"wall {wall:.3f} ms (median of {len(walls)})  {BATCH / wall * 1e3:.1f} images/s")
         del params, x, out, ref
     return launches
@@ -1124,11 +1206,12 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
+    conv_floor(rows)
     matmul_floors(lm_rows, hybrid_rows)
     entry = {"name": "conv2d", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-             "dtype": "float32", "launches": launches[torch.float32],
+             "dtype": "float32", **launches[torch.float32],
              **vgg_forward_summary(rows[torch.float32]),
-             "bfloat16": {"launches": launches[torch.bfloat16],
+             "bfloat16": {**launches[torch.bfloat16],
                           **vgg_forward_summary(rows[torch.bfloat16])}}
     print(json.dumps({"kernels": [entry, *lm_entries(lm_rows, prefill_launches, serving,
                                                      hybrid_rows, hybrid_launches,

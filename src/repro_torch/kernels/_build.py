@@ -3,8 +3,10 @@
 Each kernel directory holds one source, ``<name>/csrc/<name>.cu``, with a
 plain C interface (no PyTorch headers, so ``nvcc`` takes seconds). Every
 source is compiled by its own ``nvcc`` process, all started together, into
-``build/kernels/lib<name>-<hash>.so`` at the root of the checkout; the hash
-covers the sources of that directory and the flags, so an edited source
+``build/kernels/lib<name>-<hash>.so`` at the root of the checkout. Headers
+shared by several kernels (the Hopper helpers) live in ``kernels/include/``,
+which nvcc gets with ``-I``. The hash covers the sources of the kernel's
+directory, every shared header and the flags, so an edited source or header
 builds anew and an unchanged one is loaded from the cache. A failed build
 raises with nvcc's stderr.
 
@@ -23,6 +25,7 @@ import tempfile
 from pathlib import Path
 
 KERNELS_DIR = Path(__file__).resolve().parent
+INCLUDE_DIR = KERNELS_DIR / "include"
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
 
 # sm_90a (not sm_90) keeps wgmma and setmaxnreg available to the sources;
@@ -48,9 +51,15 @@ def _nvcc() -> str:
     return found
 
 
+def command(src: Path, out: Path) -> list[str]:
+    """The nvcc command line that builds ``src`` into the library ``out``."""
+    return [_nvcc(), *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-o", str(out), str(src)]
+
+
 def _target(src: Path) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(src.parent.glob("*.cu*")):  # the .cu and any .cuh beside it
+    # the .cu and any .cuh beside it, then the shared headers
+    for f in [*sorted(src.parent.glob("*.cu*")), *sorted(INCLUDE_DIR.glob("*.cuh"))]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
@@ -72,7 +81,7 @@ def build_all() -> dict[str, Path]:
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+        proc = subprocess.Popen(command(src, Path(tmp)),
                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                 text=True)
         jobs.append((src, out, tmp, proc))

@@ -1,4 +1,4 @@
-// Direct 2-D convolution (NCHW, OIHW, stride 1, "same" padding) for Hopper.
+// 2-D convolution (NCHW, OIHW, stride 1, "same" padding) for Hopper (sm_90a).
 //
 // Replaces the TPU kernel repro/kernels/conv2d/conv2d.py::conv2d_windows
 // together with the sliding-window re-layout its wrapper makes
@@ -10,34 +10,83 @@
 //
 // What bounds it on the H100. A 3x3 layer does 2*9*C multiply-adds for
 // each output element it writes, so every VGG-16 layer with C >= 64 needs
-// far more operations than bytes (compute bound); the first layer (C = 3)
-// writes 64 output channels from 3 input channels and is bound by memory.
-// This kernel runs on the CUDA cores in fp32 (bf16 is widened on the load),
-// so its ceiling is the 67 TFLOP/s fp32 rate, not the tensor cores.
+// far more operations than bytes (compute bound: in bf16 by the tensor
+// cores' 989 TFLOP/s, in fp32 by the CUDA cores' 67); the first layer
+// (C = 3) writes 64 output channels from 3 input channels and is bound by
+// memory.
 //
-// What the design does about it.
-//  * No padded or windowed copy in device memory: the tile loader checks
-//    bounds and writes zeros for the halo, so each input element is read
-//    from device memory once per block that needs it, not R times.
-//  * Each block computes BK = 64 output channels x (TH x TW) = (8 x 16)
-//    output pixels of one image. It stages the TH + R - 1 input rows it
-//    needs (the paper's line buffer) and the weight slice, one chunk of
-//    input channels at a time, in shared memory, converted to fp32.
-//  * Each thread keeps 8 channels x 4 adjacent pixels (32 sums) in fp32
-//    registers. Per (c, r) it loads 4 + (S - 1) input values once and slides
-//    them along the S taps, and per tap two 16-byte weight loads that the
-//    whole warp shares: 32 FMAs for every 3 shared-memory loads.
-//  * Tensor cores (wgmma), TMA and double buffering are later work.
+// What the design does about it: two routes, chosen by the Python plan
+// (conv2d.py) and checked here.
 //
-// The kernel allocates nothing, launches on the stream it is given and
-// returns cudaGetLastError(); the Python wrapper raises when that is not 0.
+//  * wgmma (bf16, C % 64 == 0, K % 8 == 0): an implicit GEMM on the tensor
+//    cores, on the matmul's TMA + mbarrier + wgmma mainloop (the helpers in
+//    kernels/include/hopper.cuh). Pixels are the GEMM's M, output channels
+//    its N, (tap, channel) its reduction. A transpose kernel first writes x
+//    as NHWC and w as an (R*S*C, K) matrix, K contiguous, into scratch the
+//    wrapper allocates (one launch for both). A block computes 128 pixels
+//    (a box of BW x BH pixels of one image, BW * BH = 128) x BN = 128
+//    output channels (64 where K <= 64, which would leave half of each
+//    m64n128 product unstored). K step `it` is tap t = it / (C/64),
+//    channel chunk c0 = (it % (C/64)) * 64: the producer warp loads A as
+//    one 4-D TMA box of 64 channels x BW x BH pixels at
+//    (c0, w0 + s - pl, h0 + r - pt, n), whose signed coordinates run off the
+//    image at the border and are zero-filled there (the "same" padding,
+//    with no padded copy and no bounds checks), and B as the matmul's
+//    64 x 64 boxes at row t*C + c0. The box lands as 128 rows of 64
+//    channels, 128-byte swizzled: the matmul's K-major A tile, so its
+//    descriptors serve unchanged. Two consumer warpgroups run m64nBNk16 on
+//    the ring; two blocks share an SM, so that one's epilogue overlaps the
+//    other's loads. The epilogue maps fragment row -> pixel
+//    (h0 + row / BW, w0 + row % BW), masks pixels past H or W and channels
+//    past K, and writes NCHW from the fragment. Where the tiles alone leave
+//    SMs idle (14 x 14 at batch 8), one block per SM with a deeper ring,
+//    and the (tap, channel) steps are cut into splits whose fp32 partials a
+//    second kernel adds in a fixed order into NCHW.
+//  * direct (fp32, and bf16 shapes TMA cannot take: C = 3, C % 64 != 0,
+//    K % 8 != 0): the CUDA-core kernel of the port's first version. Each
+//    block computes BK = 64 output channels x (TH x TW) = (8 x 16) output
+//    pixels of one image from the unpadded NCHW input: it stages the
+//    TH + R - 1 input rows it needs (the paper's line buffer), zero outside
+//    the image, and the weight slice, one chunk of input channels at a
+//    time, in shared memory as fp32. Each thread keeps 8 channels x 4
+//    adjacent pixels of sums in registers, sliding its input values along
+//    the S taps: 32 FMAs for every 3 shared-memory loads. Its ceiling is
+//    the 67 TFLOP/s fp32 rate.
+//
+// The kernels allocate nothing and launch on the stream they are given;
+// each entry point returns cudaGetLastError() (or the error of a refused
+// argument) and the Python wrapper raises when that is not 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstddef>
+#include <cstdint>
+
+#include "hopper.cuh"  // kernels/include: PTX helpers, tensor-map encoders
 
 namespace {
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
+
+// ---------------------------------------------------------------------------
+// direct route: CUDA cores, fp32 arithmetic
+// ---------------------------------------------------------------------------
+
+namespace direct {
 
 constexpr int BK = 64;         // output channels per block
 constexpr int TH = 8;          // output rows per block
@@ -55,18 +104,6 @@ static_assert(TH * (TW / PPT) == 32, "one pixel group per lane");
 struct Shape {
   int n, c, h, w, k, r, s, pt, pl, cc;  // cc: input channels per smem chunk
 };
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -193,22 +230,390 @@ cudaError_t launch(const void* x, const void* w, void* y, Shape p, cudaStream_t 
   return cudaGetLastError();
 }
 
+}  // namespace direct
+
+// ---------------------------------------------------------------------------
+// wgmma route: implicit GEMM on TMA + mbarrier ring + tensor cores, bf16
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+using hopper::ATOM;            // bf16 values in one 128-byte swizzle row
+constexpr int BM = 128;        // pixels per block: two consumer warpgroups of 64
+constexpr int BK = 64;         // input channels per K step
+constexpr int CONSUMERS = 2;
+constexpr int THREADS = 128 * CONSUMERS + 32;  // consumer warpgroups, producer warp
+constexpr int A_BYTES = BM * BK * 2;
+constexpr int ATOM_BYTES = BK * ATOM * 2;  // one 64 (k) x 64 (n) box of B: 8 KB
+constexpr uint32_t GROUP_BYTES = 1024;     // descriptor stride between groups of 8 rows
+static_assert(A_BYTES % 1024 == 0 && ATOM_BYTES % 1024 == 0, "1024-byte aligned tiles");
+
+// A block's output channels (BN: 128, or 64 where K <= 64 would leave half
+// of each m64n128 product unstored), its ring depth and how many blocks
+// share an SM (two: one block's epilogue overlaps the other's loads).
+template <int BN_, int STAGES_, int MIN_BLOCKS_>
+struct Cfg {
+  static constexpr int BN = BN_, STAGES = STAGES_, MIN_BLOCKS = MIN_BLOCKS_;
+  static constexpr int STAGE_BYTES = A_BYTES + BK * BN * 2;
+  // the stages, 1024-byte aligned inside the block's window, then the barriers
+  static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
+  static_assert(BN == 64 || BN == 128, "one or two 64-wide atoms of B");
+};
+
+struct Geo {
+  int n, c, h, w, k, r, s, pt, pl;
+  int bw, bh;                     // the pixel box: bw columns x bh rows, bw * bh == BM
+  int tiles_w, tiles_h, tiles_k;  // boxes across W and H, BN-wide tiles across K
+  int steps, kchunk;              // K steps (R * S * C / BK), steps per split
+};
+
+// The K chunk of `splits` splits of `steps`; 0 if the count does not come
+// back from the chunk (the plan settles on counts that do).
+int kchunk_of(int steps, int splits) {
+  if (splits < 1 || splits > steps) return 0;
+  const int kchunk = ceil_div(steps, splits);
+  return ceil_div(steps, kchunk) == splits ? kchunk : 0;
+}
+
+// One split (blockIdx.z) of one 128-pixel x BN-channel tile. With
+// ws == nullptr the tile is cast and written to y; otherwise its fp32
+// partial goes to ws[blockIdx.z], laid out as y is.
+template <typename CF>
+__global__ void __launch_bounds__(THREADS, CF::MIN_BLOCKS)
+conv2d_wgmma(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w,
+             __nv_bfloat16* __restrict__ y, float* __restrict__ ws, const Geo g) {
+  using namespace hopper;
+  constexpr int STAGES = CF::STAGES, BN = CF::BN, STAGE_BYTES = CF::STAGE_BYTES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t full0 = base + STAGES * STAGE_BYTES, empty0 = full0 + STAGES * 8;
+
+  // Blocks walk the output-channel tiles fastest, so the blocks in flight
+  // share their pixel boxes in L2; the weights (at most a few MB) stay there.
+  const int n0 = (blockIdx.x % g.tiles_k) * BN;
+  int rest = blockIdx.x / g.tiles_k;
+  const int w0 = (rest % g.tiles_w) * g.bw;
+  rest /= g.tiles_w;
+  const int h0 = (rest % g.tiles_h) * g.bh;
+  const int img = rest / g.tiles_h;
+  const int it0 = blockIdx.z * g.kchunk;
+  const int n_k = min(g.steps, it0 + g.kchunk) - it0;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);                  // the producer's expect_tx
+      mbar_init(empty0 + 8 * s, CONSUMERS * 128);  // every consumer thread
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS * 128) {  // the producer warp; one thread issues
+    if (tid == CONSUMERS * 128) {
+      const int chunks = g.c / BK;
+      // A second atom of B wholly past K is not loaded: the channels it
+      // would feed are not stored.
+      const bool two = BN == 128 && n0 + ATOM < g.k;
+      for (int it = 0; it < n_k; ++it) {
+        const int st = it % STAGES;
+        mbar_wait(empty0 + 8 * st, ((it / STAGES) & 1) ^ 1);
+        const uint32_t full = full0 + 8 * st, sa = base + st * STAGE_BYTES;
+        const uint32_t sb = sa + A_BYTES;
+        const int step = it0 + it;
+        const int t = step / chunks, c0 = (step - t * chunks) * BK;
+        const int r = t / g.s, s = t - r * g.s;
+        // The A box counts whole, its zero fill included.
+        mbar_arrive_expect_tx(full, A_BYTES + (two ? 2 : 1) * ATOM_BYTES);
+        tma_load_4d(sa, &map_x, full, c0, w0 + s - g.pl, h0 + r - g.pt, img);
+        tma_load_2d(sb, &map_w, full, n0, t * g.c + c0);
+        if (two) tma_load_2d(sb + ATOM_BYTES, &map_w, full, n0 + ATOM, t * g.c + c0);
+      }
+    }
+    return;
+  }
+
+  const int wgi = tid / 128;  // this consumer warpgroup's 64 pixels of the box
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  fence_operands(acc);
+  for (int it = 0; it < n_k; ++it) {
+    const int st = it % STAGES;
+    mbar_wait(full0 + 8 * st, (it / STAGES) & 1);
+    const uint32_t sa = base + st * STAGE_BYTES + wgi * 64 * 128;
+    const uint32_t sb = base + st * STAGE_BYTES + A_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {  // 16 channels a product: 32 bytes along A's rows
+      const uint64_t da = make_desc(sa + kk * 32, 16, GROUP_BYTES);
+      const uint64_t db = make_desc(sb + kk * 16 * 128, ATOM_BYTES, GROUP_BYTES);
+      if constexpr (BN == 128)
+        wgmma_m64n128k16(acc, da, db);
+      else
+        wgmma_m64n64k16(acc, da, db);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's group has retired: release that stage
+    if (it > 0) mbar_arrive(empty0 + 8 * ((it - 1) % STAGES));
+  }
+  wgmma_wait<0>();
+  fence_operands(acc);
+
+  // Fragment of m64nBN: warp w of the warpgroup holds rows 16w + lane/4
+  // (+ 8), columns 8j + 2 (lane % 4) (+ 1) in acc[4j + {0, 1}] (+ {2, 3}).
+  // Row i of the box is pixel (h0 + i / bw, w0 + i % bw); column j is
+  // output channel n0 + j. Written straight from the fragment: 16-byte
+  // runs of one channel per store; staging the tile through shared memory
+  // for whole sectors measured 1-10 % slower at every VGG-16 shape (PERF.md).
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const size_t hw = (size_t)g.h * g.w;
+  size_t pix[2];
+  bool inside[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = wgi * 64 + warp * 16 + lane / 4 + 8 * h;
+    const int ph = h0 + row / g.bw, pw = w0 + row % g.bw;
+    inside[h] = ph < g.h && pw < g.w;
+    pix[h] = (size_t)img * g.k * hw + (size_t)ph * g.w + pw;
+  }
+  float* part = ws == nullptr ? nullptr : ws + (size_t)blockIdx.z * g.n * g.k * hw;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      const int col = n0 + 8 * j + 2 * (lane % 4) + b;
+      if (col >= g.k) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (!inside[h]) continue;
+        const size_t at = pix[h] + (size_t)col * hw;
+        const float v = acc[4 * j + 2 * h + b];
+        if (part != nullptr)
+          part[at] = v;
+        else
+          y[at] = __float2bfloat16(v);
+      }
+    }
+  }
+}
+
+// y = cast(sum over z of ws[z]), the partials added in order z = 0, 1, ...
+__global__ void __launch_bounds__(256)
+splitk_reduce(const float* __restrict__ ws, __nv_bfloat16* __restrict__ y, size_t total,
+              int splits) {
+  for (size_t i = (size_t)blockIdx.x * 256 + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * 256) {
+    float s = 0.f;
+    for (int z = 0; z < splits; ++z) s += ws[z * total + i];
+    y[i] = __float2bfloat16(s);
+  }
+}
+
+// The operands' re-layout: in (batch, P, Q) -> out (batch, Q, P), row
+// q = c * RS + t of the transpose going to row t * (Q / RS) + c. x
+// (N, C, H*W) with RS = 1 gives NHWC; w (K, C*R*S) with RS = R*S gives the
+// (R*S*C, K) matrix, row t*C + c holding tap t of channel c. One launch
+// does both: its first blocks take x's 64 x 64 tiles, the rest w's.
+struct Transpose {
+  const __nv_bfloat16* in;
+  __nv_bfloat16* out;
+  int p_n, q_n, rs;      // in is (batch, p_n, q_n)
+  int tiles_q, tiles_p;  // 64 x 64 tiles of one plane
+  bool pairs;            // 4-byte accesses: p_n and q_n even, both pointers 4-byte aligned
+};
+
+// [p][q], rows of 66: 4-byte aligned pairs, and the column reads of the
+// write pass fall on distinct banks but for pairs of lanes.
+using Tile = __nv_bfloat16[64][66];
+
+// Tile b of job j through shared memory: reads run along q and writes
+// along p, V elements a thread (V = 2: a warp moves 128 contiguous bytes).
+template <int V>
+__device__ __forceinline__ void transpose_tile(const Transpose j, int b, Tile& tile) {
+  constexpr int TPR = 64 / V;     // threads along one 64-wide row of the tile
+  constexpr int RPP = 256 / TPR;  // rows a pass covers
+  const int per_plane = j.tiles_q * j.tiles_p;
+  const int z = b / per_plane, rest = b - z * per_plane;
+  const int q0 = (rest % j.tiles_q) * 64, p0 = (rest / j.tiles_q) * 64;
+  const size_t plane = (size_t)j.p_n * j.q_n;
+  const __nv_bfloat16* in = j.in + z * plane;
+  __nv_bfloat16* out = j.out + z * plane;
+  const int lo = (threadIdx.x % TPR) * V, row = threadIdx.x / TPR;
+#pragma unroll
+  for (int i = row; i < 64; i += RPP) {
+    const int p = p0 + i, q = q0 + lo;  // with V = 2, q_n is even: q + 1 < q_n too
+    const bool ok = p < j.p_n && q < j.q_n;
+    if constexpr (V == 2) {
+      __nv_bfloat162 v = __float2bfloat162_rn(0.f);
+      if (ok) v = *reinterpret_cast<const __nv_bfloat162*>(in + (size_t)p * j.q_n + q);
+      *reinterpret_cast<__nv_bfloat162*>(&tile[i][lo]) = v;
+    } else {
+      tile[i][lo] = ok ? in[(size_t)p * j.q_n + q] : __float2bfloat16(0.f);
+    }
+  }
+  __syncthreads();
+  const int per = j.q_n / j.rs;
+#pragma unroll
+  for (int i = row; i < 64; i += RPP) {
+    const int q = q0 + i, p = p0 + lo;  // with V = 2, p_n is even: p + 1 < p_n too
+    if (q >= j.q_n || p >= j.p_n) continue;
+    __nv_bfloat16* dst = out + ((size_t)(q % j.rs) * per + q / j.rs) * j.p_n + p;
+    if constexpr (V == 2) {
+      __nv_bfloat162 v;
+      v.x = tile[lo][i];
+      v.y = tile[lo + 1][i];
+      *reinterpret_cast<__nv_bfloat162*>(dst) = v;
+    } else {
+      *dst = tile[lo][i];
+    }
+  }
+}
+
+// Each branch reads its own parameter struct by value: no copy of either to
+// local memory.
+__global__ void __launch_bounds__(256)
+relayout_kernel(const Transpose x, const Transpose w, int blocks_x) {
+  __shared__ __align__(16) Tile tile;
+  const int b = blockIdx.x;
+  if (b < blocks_x) {
+    if (x.pairs)
+      transpose_tile<2>(x, b, tile);
+    else
+      transpose_tile<1>(x, b, tile);
+  } else if (w.pairs) {
+    transpose_tile<2>(w, b - blocks_x, tile);
+  } else {
+    transpose_tile<1>(w, b - blocks_x, tile);
+  }
+}
+
+Transpose transpose_job(const void* in, void* out, int p_n, int q_n, int rs) {
+  const bool pairs = p_n % 2 == 0 && q_n % 2 == 0 && ((uintptr_t)in | (uintptr_t)out) % 4 == 0;
+  return Transpose{static_cast<const __nv_bfloat16*>(in), static_cast<__nv_bfloat16*>(out), p_n,
+                   q_n, rs, ceil_div(q_n, 64), ceil_div(p_n, 64), pairs};
+}
+
+// x (N, C, H, W) -> xt (N, H, W, C); w (K, C, R, S) -> wt (R * S * C, K).
+cudaError_t relayout(const void* x, const void* w, void* xt, void* wt, const Geo& g,
+                     cudaStream_t stream) {
+  const Transpose tx = transpose_job(x, xt, g.c, g.h * g.w, 1);
+  const Transpose tw = transpose_job(w, wt, g.k, g.c * g.r * g.s, g.r * g.s);
+  const long long bx = (long long)tx.tiles_q * tx.tiles_p * g.n;
+  const long long blocks = bx + (long long)tw.tiles_q * tw.tiles_p;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  relayout_kernel<<<(unsigned)blocks, 256, 0, stream>>>(tx, tw, (int)bx);
+  return cudaGetLastError();
+}
+
+// x: NCHW, w: (K, C, R, S), y: NCHW, all bf16; xt and wt: the re-laid-out
+// operands (written here first), 16-byte aligned. The re-layout is queued
+// before the tensor maps are encoded, so the card starts while the host
+// encodes.
+template <typename CF>
+cudaError_t launch(const void* x, const void* w, void* y, void* xt, void* wt, float* ws, Geo g,
+                   int splits, int device, cudaStream_t stream) {
+  if (g.c % BK || g.k % 8 || g.bw < 1 || g.bh < 1 || g.bw * g.bh != BM ||
+      ((uintptr_t)xt | (uintptr_t)wt) % 16 || (splits > 1 && ws == nullptr))
+    return cudaErrorInvalidValue;
+  g.steps = g.r * g.s * (g.c / BK);
+  g.kchunk = kchunk_of(g.steps, splits);
+  g.tiles_w = ceil_div(g.w, g.bw);
+  g.tiles_h = ceil_div(g.h, g.bh);
+  g.tiles_k = ceil_div(g.k, CF::BN);
+  const long long blocks = (long long)g.tiles_k * g.tiles_w * g.tiles_h * g.n;
+  if (g.kchunk == 0 || blocks > 0x7fffffffLL || splits > 65535) return cudaErrorInvalidValue;
+  cudaError_t e = relayout(x, w, xt, wt, g, stream);
+  if (e != cudaSuccess) return e;
+  CUtensorMap map_x, map_w;
+  if (!hopper::encode_4d(&map_x, xt, g.n, g.h, g.w, g.c, g.bw, g.bh) ||
+      !hopper::encode_2d(&map_w, wt, g.r * g.s * g.c, g.k, BK))
+    return cudaErrorInvalidValue;
+  // Above 48 KB of dynamic shared memory a kernel must opt in, once per device.
+  static std::atomic<unsigned long long> ready{0};
+  const unsigned long long bit = 1ull << (device & 63);
+  if (!(ready.load(std::memory_order_relaxed) & bit)) {
+    e = cudaFuncSetAttribute(conv2d_wgmma<CF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             CF::SMEM);
+    if (e != cudaSuccess) return e;
+    ready.fetch_or(bit);
+  }
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(y);
+  conv2d_wgmma<CF><<<dim3((unsigned)blocks, 1, splits), THREADS, CF::SMEM, stream>>>(
+      map_x, map_w, out, splits > 1 ? ws : nullptr, g);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return e;
+  const size_t total = (size_t)g.n * g.k * g.h * g.w;
+  const long long rb = ((long long)total + 255) / 256;
+  splitk_reduce<<<(int)(rb < 8 * 132 ? rb : 8 * 132), 256, 0, stream>>>(ws, out, total, splits);
+  return cudaGetLastError();
+}
+
+// (tile_n, blocks per SM) -> the kernel's configuration.
+cudaError_t dispatch(int tile_n, int blocks, const void* x, const void* w, void* y, void* xt,
+                     void* wt, float* ws, const Geo& g, int splits, int device,
+                     cudaStream_t stream) {
+  switch (tile_n * 4 + blocks) {
+    case 128 * 4 + 1: return launch<Cfg<128, 4, 1>>(x, w, y, xt, wt, ws, g, splits, device, stream);
+    case 128 * 4 + 2: return launch<Cfg<128, 3, 2>>(x, w, y, xt, wt, ws, g, splits, device, stream);
+    case 64 * 4 + 1: return launch<Cfg<64, 4, 1>>(x, w, y, xt, wt, ws, g, splits, device, stream);
+    case 64 * 4 + 2: return launch<Cfg<64, 4, 2>>(x, w, y, xt, wt, ws, g, splits, device, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace wg
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 on success).
+// The direct route. dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t
+// (0 on success).
 int repro_conv2d(const void* x, const void* w, void* y, int n, int c, int h, int wd, int k,
                  int r, int s, int dtype, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  const Shape p{n, c, h, wd, k, r, s, (r - 1) / 2, (s - 1) / 2, 0};
+  const direct::Shape p{n, c, h, wd, k, r, s, (r - 1) / 2, (s - 1) / 2, 0};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return (int)launch<float>(x, w, y, p, st);
-    case 1: return (int)launch<__nv_bfloat16>(x, w, y, p, st);
+    case 0: return (int)direct::launch<float>(x, w, y, p, st);
+    case 1: return (int)direct::launch<__nv_bfloat16>(x, w, y, p, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+static cudaError_t on_device(int device) {
+  int current = -1;
+  cudaError_t e = cudaGetDevice(&current);
+  if (e == cudaSuccess && current != device) e = cudaSetDevice(device);
+  return e;
+}
+
+// The wgmma route, bf16 only: x (N, C, H, W), w (K, C, R, S), y (N, K, H,
+// W); xt (N, H, W, C) and wt (R * S * C, K) are scratch the call fills with
+// the re-laid-out operands; a box of bw x bh = 128 pixels; splits > 1 takes
+// an fp32 workspace of splits * N * K * H * W values; blocks per SM: 1 or 2;
+// tile_n: output channels per block, 128 or 64. Returns a cudaError_t (0 on
+// success).
+int repro_conv2d_wgmma(const void* x, const void* w, void* y, void* xt, void* wt, void* ws,
+                       int n, int c, int h, int wd, int k, int r, int s, int bw, int bh,
+                       int splits, int blocks, int tile_n, int device, void* stream) {
+  cudaError_t e = on_device(device);
+  if (e != cudaSuccess) return (int)e;
+  const wg::Geo g{n, c, h, wd, k, r, s, (r - 1) / 2, (s - 1) / 2, bw, bh, 0, 0, 0, 0, 0};
+  return (int)wg::dispatch(tile_n, blocks, x, w, y, xt, wt, static_cast<float*>(ws), g, splits,
+                           device, static_cast<cudaStream_t>(stream));
+}
+
+// The wgmma route's re-layout alone (x -> xt, w -> wt as above), for tests
+// and timing.
+int repro_conv2d_relayout(const void* x, const void* w, void* xt, void* wt, int n, int c,
+                          int h, int wd, int k, int r, int s, int device, void* stream) {
+  cudaError_t e = on_device(device);
+  if (e != cudaSuccess) return (int)e;
+  const wg::Geo g{n, c, h, wd, k, r, s, 0, 0, 0, 0, 0, 0, 0, 0, 0};
+  return (int)wg::relayout(x, w, xt, wt, g, static_cast<cudaStream_t>(stream));
 }
 
 const char* repro_cuda_error_string(int err) {

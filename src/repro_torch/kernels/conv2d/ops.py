@@ -1,14 +1,16 @@
-"""Checked entry point of the direct convolution ('same' padding, stride 1).
+"""Checked entry point of the convolution ('same' padding, stride 1).
 
 The counterpart of ``repro/kernels/conv2d/ops.py::conv2d``. A CUDA tensor
-launches the CUDA kernel (or raises); a CPU tensor takes the plain
-version ``conv2d_ref``. ``conv2d.launches`` counts kernel launches.
+launches the CUDA kernel (or raises) on the route ``conv2d.plan_for``
+picks; a CPU tensor takes the plain version ``conv2d_ref``.
+``conv2d.launches`` counts kernel launches, one per call, and
+``conv2d.launches_by_route`` splits them by route (``wgmma``, ``direct``).
 """
 from __future__ import annotations
 
 import torch
 
-from .conv2d import conv2d_direct
+from .conv2d import ROUTES, launch, plan_for
 from .ref import conv2d_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -45,9 +47,12 @@ def conv2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return conv2d_ref(x, w)
     out = torch.empty((x.shape[0], w.shape[0], x.shape[2], x.shape[3]),
                       dtype=x.dtype, device=x.device)
-    conv2d_direct(x, w, out)
+    p = plan_for(x, w)
+    launch(x, w, out, p)
     conv2d.launches += 1
+    conv2d.launches_by_route[p.route] += 1
     return out
 
 
 conv2d.launches = 0
+conv2d.launches_by_route = dict.fromkeys(ROUTES, 0)

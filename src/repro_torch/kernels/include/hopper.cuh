@@ -1,9 +1,13 @@
-// Hopper building blocks of the matmul's wgmma route, in inline PTX for
-// sm_90a: mbarriers, TMA tile loads and the m64n128k16 bf16 wgmma with its
-// shared-memory descriptors. Included by matmul.cu only.
+// Hopper building blocks shared by the port's tensor-core kernels (the
+// matmul's and the conv's wgmma routes), in inline PTX for sm_90a:
+// mbarriers, TMA tile loads (2-D and 4-D) and the m64n128k16 and m64n64k16
+// bf16 wgmmas with their shared-memory descriptors; and, on the host, the tensor-map encoders.
+// kernels/_build.py passes this directory to nvcc with -I and hashes it into
+// every kernel's cache key.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only: nothing of libcuda is linked
+#include <cuda_runtime.h>
 
 #include <cstdint>
 
@@ -65,6 +69,18 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// One 4-D box at (c0 innermost, c1, c2, c3). Coordinates are signed: a box
+// that starts before 0 or runs past the end is zero-filled there, and its
+// bytes still count whole on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // ---- wgmma -----------------------------------------------------------------
 
 // Shared-memory matrix descriptor of a tile written by TMA with 128-byte
@@ -94,9 +110,10 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // Pins the accumulators in program order around the asynchronous products,
 // so the compiler neither reads them before wgmma_wait nor moves them.
-__device__ __forceinline__ void fence_operands(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (64 x 128, fp32, the warpgroup's fragment) += A (64 x 16, K-major) @
@@ -133,6 +150,89 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 64, fp32) += A (64 x 16, K-major) @ B (16 x 64, MN-major): the
+// same product on one 64-wide atom of B.
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a,
+                                                uint64_t desc_b) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "setp.ne.b32 p, %34, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// ---- tensor maps (host) ----------------------------------------------------
+
+constexpr int ATOM = 64;  // bf16 values in one 128-byte swizzle row: every box's inner width
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of libcuda, looked up through the runtime (no -lcuda).
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 tensor of `rank` dimensions (innermost first, `strides` in bytes for
+// dimensions 1..rank-1) in boxes of `box`, 128-byte swizzled; reads outside
+// the tensor give zeros. box[0] must be ATOM (one swizzle row).
+inline bool encode_bf16(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+                        const cuuint64_t* strides, const cuuint32_t* box) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A row-major bf16 (rows, cols) matrix in boxes of box_rows x 64 columns.
+inline bool encode_2d(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)ATOM, (cuuint32_t)box_rows};
+  return encode_bf16(map, ptr, 2, dims, strides, box);
+}
+
+// A bf16 (d3, d2, d1, d0) array, d0 contiguous, in boxes of 64 x b1 x b2 x 1
+// (innermost first): the conv's NHWC input as (N, H, W, C) in boxes of 64
+// channels x b1 columns x b2 rows of one image.
+inline bool encode_4d(CUtensorMap* map, const void* ptr, int d3, int d2, int d1, int d0, int b1,
+                      int b2) {
+  const cuuint64_t dims[4] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2, (cuuint64_t)d3};
+  const cuuint64_t strides[3] = {(cuuint64_t)d0 * 2, (cuuint64_t)d0 * d1 * 2,
+                                 (cuuint64_t)d0 * d1 * d2 * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)ATOM, (cuuint32_t)b1, (cuuint32_t)b2, 1};
+  return encode_bf16(map, ptr, 4, dims, strides, box);
 }
 
 }  // namespace hopper

@@ -60,7 +60,7 @@
 #include <cstddef>
 #include <cstdint>
 
-#include "hopper.cuh"
+#include "hopper.cuh"  // kernels/include: PTX helpers, tensor-map encoders
 
 namespace {
 
@@ -238,7 +238,7 @@ cudaError_t dispatch(int tile, const void* a, const void* b, void* c, float* ws,
 namespace wg {
 
 constexpr int BN = 128, BK = 64;
-constexpr int ATOM = 64;                  // bf16 values in one 128-byte swizzle row
+using hopper::ATOM;                       // bf16 values in one 128-byte swizzle row
 constexpr int ATOM_BYTES = BK * ATOM * 2;  // one 64 (k) x 64 (n) box of B: 8 KB
 // Descriptor strides: from one group of 8 rows (8 x 128 bytes) to the next,
 // for A's rows of M and B's rows of k; B's atoms along N sit ATOM_BYTES apart.
@@ -356,42 +356,6 @@ matmul_wgmma(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ 
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled of libcuda, looked up through the runtime (no -lcuda).
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
-// A row-major bf16 (rows, cols) tensor in boxes of box_rows x 64 columns,
-// 128-byte swizzled; reads past the edges give zeros.
-bool encode(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)ATOM, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
-            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <typename CF, typename TC>
 cudaError_t launch(const void* a, const void* b, void* c, float* ws, int m, int n, int k,
                    int splits, int device, cudaStream_t stream) {
@@ -400,7 +364,7 @@ cudaError_t launch(const void* a, const void* b, void* c, float* ws, int m, int 
       ceil_div(n, BN) > 65535)
     return cudaErrorInvalidValue;
   CUtensorMap map_a, map_b;
-  if (!encode(&map_a, a, m, k, CF::BM) || !encode(&map_b, b, k, n, BK))
+  if (!hopper::encode_2d(&map_a, a, m, k, CF::BM) || !hopper::encode_2d(&map_b, b, k, n, BK))
     return cudaErrorInvalidValue;
   // Above 48 KB of dynamic shared memory a kernel must opt in, once per device.
   static std::atomic<unsigned long long> ready{0};

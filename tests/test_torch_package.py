@@ -81,6 +81,26 @@ def test_every_kernel_is_built_from_its_source():
     assert sorted(_build.sources()) == sorted(KERNELS)
 
 
+def test_shared_header_is_in_every_kernel_target(tmp_path, monkeypatch):
+    """An edit to a shared header (kernels/include) gives every kernel a new
+    cache key, so no stale library is loaded; nvcc gets the directory."""
+    import shutil
+    from repro_torch.kernels import _build
+    inc = tmp_path / "include"
+    shutil.copytree(_build.INCLUDE_DIR, inc)
+    monkeypatch.setattr(_build, "INCLUDE_DIR", inc)
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    srcs = _build.sources()
+    before = {name: _build._target(src) for name, src in srcs.items()}
+    assert before == {name: _build._target(src) for name, src in srcs.items()}
+    header = inc / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: _build._target(src) for name, src in srcs.items()}
+    assert all(after[name] != before[name] for name in srcs)
+    cmd = _build.command(srcs["conv2d"], tmp_path / "lib.so")
+    assert cmd[cmd.index("-I") + 1] == str(inc)
+
+
 @pytest.mark.parametrize("name", KERNELS)
 def test_kernel_source_carries_its_note(name):
     """Each source names the TPU kernel it replaces, what bounds it on the

@@ -51,10 +51,9 @@ def build(variants: list[str], out_dir: Path) -> dict:
         stages, blocks = (int(x) for x in v.split(","))
         d = out_dir / f"s{stages}b{blocks}"
         d.mkdir()
-        (d / "hopper.cuh").write_text((src_dir / "hopper.cuh").read_text())
         (d / "matmul.cu").write_text(text.replace(LARGE, f"using Large = Cfg<2, {stages}, {blocks}>;"))
         jobs[v] = (d / "libmatmul.so", subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "libmatmul.so"), str(d / "matmul.cu")],
+            _build.command(d / "matmul.cu", d / "libmatmul.so"),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for v, (so, proc) in jobs.items():
