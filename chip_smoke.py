@@ -38,24 +38,28 @@ any failure raises and exits non-zero.
       versions, fp32 and bf16, at every shape StarCoder2-3B's serving path
       gives them (prefill at batch 4 x 512 tokens, decode at 4 slots) and
       at the small shapes of the kernel tests (the window case, head dim
-      48, queries shorter than keys, M = 1). Tolerance atol = rtol = 2e-4
-      in fp32, 2e-2 in bf16. Per full-width shape it times the kernel, the
-      plain version and one PyTorch call of the same function
-      (``torch.matmul``, ``F.rms_norm``, ``F.scaled_dot_product_attention``;
-      the yardstick, never called by the port) and computes the bound.
-      Each matmul row also prints the route, tile and K splits of the
-      kernel's plan and a back-to-back device time of the kernel and of
-      ``torch.matmul``: 50 calls between one pair of CUDA events after an
-      L2 flush, the device kept busy while the host queues them, cycling
-      over copies of the weight so that each call reads it from device
-      memory. The host microseconds per matmul wrapper call on a decode
-      shape are printed beside torch.matmul's.
+      48, queries shorter than keys, M = 1), and flash attention at
+      StarCoder2's heads (hd 128) with S not a multiple of 128, S < Sk, a
+      window and no mask (ATTN_ROUTE_CASES), each flash call counted on
+      the route its plan names (bf16 ``wgmma``, fp32 ``simt``) and the plan
+      printed. Tolerance atol = rtol = 2e-4 in fp32, 2e-2 in bf16. Per
+      full-width shape it times the kernel, the plain version and one
+      PyTorch call of the same function (``torch.matmul``, ``F.rms_norm``,
+      ``F.scaled_dot_product_attention`` with ``enable_gqa``; the yardstick,
+      never called by the port) and computes the bound. Each matmul,
+      RMSNorm and flash row also prints a back-to-back device time of the
+      kernel and of the PyTorch call: 50 calls between one pair of CUDA
+      events after an L2 flush, the device kept busy while the host queues
+      them (matmul rows cycle over copies of the weight so that each call
+      reads it from device memory); matmul rows print the route, tile and
+      K splits of the kernel's plan, flash rows the route. The host microseconds per matmul wrapper call on a
+      decode shape are printed beside torch.matmul's.
   (E) Prefill: ``api.prefill_logits`` on StarCoder2-3B at full width and
       depth, bf16 weights from a seeded generator, batch 4 x 512 tokens,
       against ``forward(use_kernel=False)``: normalised error at most
       2e-2, finite (4, 512, 49152) logits, and exactly 181 matmul, 61
       RMSNorm and 30 flash-attention launches per forward, every matmul
-      on the wgmma route.
+      and every flash attention on the wgmma route.
   (F) Serving: ``ContinuousBatcher`` on the same weights, 4 slots, 8 seeded
       requests (prompts of 16-64 tokens, 8-16 new tokens each): every
       request completes; every tick makes exactly 181 matmul (all wgmma)
@@ -68,7 +72,8 @@ any failure raises and exits non-zero.
       in fp32 and with the model's bf16 x, b, c, and at the small shapes of
       the kernel tests (tests/test_kernels.py::SSD_CASES, S < chunk), with
       chunk invariance (32 against 128); atol = rtol = 2e-4 (fp32), 2e-2
-      (bf16), the normalised error printed beside it. Then matmul, RMSNorm
+      (bf16), the normalised error printed beside it. Then flash attention
+      at Zamba2's heads (hd 80) on ATTN_ROUTE_CASES, and matmul, RMSNorm
       and flash attention at every shape Zamba2's prefill and decode tick
       give them. Times and bounds as in phase D; no PyTorch call computes
       the SSD, so its library time is "none".
@@ -76,7 +81,8 @@ any failure raises and exits non-zero.
       (54 Mamba2 layers, 9 uses of the shared attention block), bf16
       weights from a seeded generator, batch 4 x 512 (two SSD chunks):
       finite (4, 512, 32000) fp32 logits, exactly 280 matmul (all wgmma),
-      127 RMSNorm, 9 flash-attention and 54 SSD launches per forward. Each of the 63
+      127 RMSNorm, 9 flash-attention (all wgmma; the fp32 forward's 9 all
+      simt) and 54 SSD launches per forward. Each of the 63
       blocks and the head is held kernel route against plain route fed the
       same input: normalised error at most 2e-2 in bf16 and 2e-4 in fp32.
       The end-to-end errors (bf16 and fp32) are printed, not gated: with
@@ -95,9 +101,12 @@ any failure raises and exits non-zero.
       plain-route batcher's.
 
 Then it holds the bf16 conv of VGG-16 to cuDNN in the same run (the sum of
-single calls over one forward at most 1.5x cuDNN's), and the bf16 matmul of
-both LMs to torch.matmul: the prefill sum of single calls at most 4x
-torch.matmul's, the decode tick's back-to-back sum at most 2x. Its last two
+single calls over one forward at most 1.5x cuDNN's), the bf16 matmul of
+both LMs to torch.matmul (the prefill sum of single calls at most 4x
+torch.matmul's, the decode tick's back-to-back sum at most 2x), and the
+bf16 flash attention of a prefill, back to back, to SDPA's: at most 2x on
+StarCoder2 (hd 128), 3x on Zamba2 (hd 80); it prints RMSNorm's single-call
+and back-to-back sums beside F.rms_norm's. Its last two
 lines are the kernel summary (one JSON object) and the result
 ``{"ok": true, "device": {...}}``. There is no CPU fallback: without a CUDA
 device it exits non-zero and prints no result.
@@ -126,6 +135,8 @@ from repro_torch.kernels.conv2d.conv2d import plan_for as conv_plan_for  # noqa:
 from repro_torch.kernels.conv2d.conv2d import relayout  # noqa: E402
 from repro_torch.kernels.conv2d.ops import conv2d  # noqa: E402
 from repro_torch.kernels.conv2d.ref import conv2d_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.flash_attention import \
+    plan_for as flash_plan_for  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import attn_fn as flash_attn_fn  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
@@ -443,6 +454,18 @@ ATTN_SMALL = [(1, 128, 4, 2, 64, True, None), (2, 96, 4, 4, 32, True, None),
               (1, 256, 8, 2, 64, True, 64), (1, 64, 2, 2, 64, False, None),
               (1, 128, 6, 2, 48, True, None)]
 ATTN_SHORT_Q = [(2, 40, 100, 4, 2, 32, None), (1, 70, 200, 6, 2, 48, 64)]
+# The flash kernel's routes at each LM's heads (hd 128 in phase D, 80 in
+# phase G), S not a multiple of the 128-row query block, S < Sk, a window:
+# (b, s, s_k, causal, window), drawn from a generator of their own so that
+# the later phases draw what they drew before.
+ATTN_ROUTE_CASES = [(2, 200, 200, True, None), (1, 300, 420, True, None),
+                    (1, 330, 330, True, 100), (1, 77, 77, False, None)]
+ATTN_ROUTE_SEED = 16
+ROUTE_NAMES = ("simt", "wgmma")
+# bf16 flash attention per prefill, back to back, at most this times SDPA's
+# in the same run: hd 128 (StarCoder2), hd 80 (Zamba2, whose PV runs at
+# N = 128 over the zero-filled atom: 37.5 % of it wasted).
+FLASH_FLOORS = {LM_ARCH: 2.0, HYBRID_ARCH: 3.0}
 SSD_SMALL = [(2, 128, 4, 32, 16, 32), (1, 256, 2, 64, 32, 64), (1, 64, 8, 16, 64, 16),
              (1, 100, 3, 16, 8, 256)]
 
@@ -504,6 +527,47 @@ def reset_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
     matmul.launches_by_route = dict.fromkeys(matmul.launches_by_route, 0)
+    flash_attention.launches_by_route = dict.fromkeys(flash_attention.launches_by_route, 0)
+
+
+def check_flash_routes(where: str, route: str, n: int) -> None:
+    """The run just counted made ``n`` flash launches, all on ``route``."""
+    want = {name: n if name == route else 0 for name in ROUTE_NAMES}
+    check(flash_attention.launches_by_route == want,
+          f"{where}: flash routes {flash_attention.launches_by_route}, expected {want}")
+
+
+def expected_flash_route(dtype) -> str:
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
+
+
+def counted_flash(q, k, v, causal: bool, window):
+    """One flash-attention call that must launch once, on the route its plan names."""
+    route = flash_plan_for(q, k, v)
+    before, by = flash_attention.launches, dict(flash_attention.launches_by_route)
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    check(flash_attention.launches == before + 1
+          and flash_attention.launches_by_route[route] == by[route] + 1,
+          f"flash routes {flash_attention.launches_by_route} (before {by}), expected one "
+          f"on {route}")
+    return out, route
+
+
+def flash_route_cases(phase: str, cfg) -> None:
+    """The flash kernel against its plain version at ``cfg``'s heads on
+    ATTN_ROUTE_CASES, bf16 on wgmma and fp32 on simt, the plan printed."""
+    gen = torch.Generator(device="cuda").manual_seed(ATTN_ROUTE_SEED)
+    h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    for dtype in DTYPES:
+        for b, s, sk, causal, win in ATTN_ROUTE_CASES:
+            q = randn((b, s, h, hd), dtype, gen)
+            k, v = randn((b, sk, kv, hd), dtype, gen), randn((b, sk, kv, hd), dtype, gen)
+            out, route = counted_flash(q, k, v, causal, win)
+            check(route == expected_flash_route(dtype), f"flash {dtype} planned {route}")
+            err = max_err_within(out, attention_ref(q, k, v, causal=causal, window=win),
+                                 TOL[dtype])
+            print(f"{phase} {name_of(dtype):8s} flash B={b} S={s} Sk={sk} H={h} KV={kv} hd={hd} "
+                  f"causal={causal} window={win}: {route}  max_abs_err {err:.3e}")
 
 
 def check_wgmma(where: str) -> None:
@@ -544,9 +608,13 @@ def timed_row(kernel, plain, library, nbytes, ops, dtype, **shape) -> dict:
 def print_row(phase: str, tag: str, dtype, desc: str, row: dict) -> None:
     lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
     extra = ""
-    if "route" in row:
-        extra = (f"  {row['route']} {row['tile']} splits {row['splits']}  back to back: "
-                 f"kernel {row['b2b_ms']:.4f} ms  library {row['b2b_library_ms']:.4f} ms")
+    if "tile" in row:
+        extra = f"  {row['route']} {row['tile']} splits {row['splits']}"
+    elif "route" in row:
+        extra = f"  {row['route']}"
+    if "b2b_ms" in row:
+        extra += (f"  back to back: kernel {row['b2b_ms']:.4f} ms  library "
+                  f"{row['b2b_library_ms']:.4f} ms")
     print(f"{phase} {name_of(dtype):8s} {tag:15s} {desc}: max_abs_err {row['max_abs_err']:.3e}  "
           f"kernel {row['ms']:.4f} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']})  "
           f"plain {row['plain_ms']:.4f} ms  library {lib}  "
@@ -586,19 +654,27 @@ def lm_kernel_rows(cfg, gen, phase: str) -> dict:
                                 lambda: F.rms_norm(x, (d,), sc, 1e-6),
                                 el * (2 * m * d + d), 4 * m * d, dtype,
                                 m=m, d=d, count=count, per=per)
+                row.update(b2b_ms=b2b_ms(lambda i: rmsnorm(x, sc)),
+                           b2b_library_ms=b2b_ms(lambda i: F.rms_norm(x, (d,), sc, 1e-6)))
                 print_row(phase, "rmsnorm", dtype, f"rows={m} D={d}", row)
                 rms_rows.append(row)
         b, s, h, kv, hd = PREFILL_BATCH, PREFILL_SEQ, cfg.n_heads, cfg.n_kv, cfg.head_dim
         q = randn((b, s, h, hd), dtype, gen)
         k, v = randn((b, s, kv, hd), dtype, gen), randn((b, s, kv, hd), dtype, gen)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
         row = timed_row(lambda: flash_attention(q, k, v, causal=True),
-                        lambda: attention_ref(q, k, v, causal=True),
-                        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                               enable_gqa=True),
+                        lambda: attention_ref(q, k, v, causal=True), sdpa,
                         el * (2 * q.numel() + k.numel() + v.numel()),
                         4 * b * h * s * s * hd / 2, dtype, b=b, s=s, sk=s, h=h, kv=kv, hd=hd,
                         count=expected_launches(cfg)["flash_attention"], per="prefill")
+        route = flash_plan_for(q, k, v)
+        check(route == expected_flash_route(dtype), f"flash {dtype} planned {route}")
+        row.update(route=route, b2b_ms=b2b_ms(lambda i: flash_attention(q, k, v, causal=True)),
+                   b2b_library_ms=b2b_ms(lambda i: sdpa()))
         print_row(phase, "flash_attention", dtype,
                   f"B={b} S=Sk={s} H={h} KV={kv} hd={hd} causal", row)
         out["matmul"][dtype], out["rmsnorm"][dtype] = mm_rows, rms_rows
@@ -624,11 +700,13 @@ def phase_d(gen) -> dict:
         for b, s, sk, h, kv, hd, causal, win in cases:
             q = randn((b, s, h, hd), dtype, gen)
             k, v = randn((b, sk, kv, hd), dtype, gen), randn((b, sk, kv, hd), dtype, gen)
-            err = max_err_within(flash_attention(q, k, v, causal=causal, window=win),
-                                 attention_ref(q, k, v, causal=causal, window=win), TOL[dtype])
+            out, route = counted_flash(q, k, v, causal, win)
+            err = max_err_within(out, attention_ref(q, k, v, causal=causal, window=win),
+                                 TOL[dtype])
             print(f"D {name_of(dtype):8s} flash B={b} S={s} Sk={sk} H={h} KV={kv} hd={hd} "
-                  f"causal={causal} window={win}: max_abs_err {err:.3e}")
+                  f"causal={causal} window={win}: {route}  max_abs_err {err:.3e}")
     cfg = get_config(LM_ARCH)
+    flash_route_cases("D", cfg)
     print_host_path("D", cfg)
     return lm_kernel_rows(cfg, gen, "D")
 
@@ -661,12 +739,12 @@ def print_host_path(phase: str, cfg) -> None:
 def lm_summary(rows, per: str) -> dict:
     """Per-shape numbers summed over one prefill forward or one decode tick."""
     rows = [r for r in rows if r["per"] == per]
-    keys = ("ms", "plain_ms", "bound_ms") + (("b2b_ms", "b2b_library_ms") if "route" in rows[0]
-                                             else ())
+    keys = ("ms", "plain_ms", "bound_ms") + (("b2b_ms", "b2b_library_ms")
+                                             if "b2b_ms" in rows[0] else ())
     tot = {key: sum(r[key] * r["count"] for r in rows) for key in keys}
     if "route" in rows[0]:
         tot["routes"] = {route: sum(r["count"] for r in rows if r["route"] == route)
-                         for route in matmul.launches_by_route}
+                         for route in ROUTE_NAMES}
     tot["library_ms"] = (None if any(r["library_ms"] is None for r in rows)
                          else sum(r["library_ms"] * r["count"] for r in rows))
     ops_ms = sum(r["bound_ms"] * r["count"] for r in rows if r["bound_by"] == "operations")
@@ -696,7 +774,9 @@ def phase_e(gen):
             got = counts()
             check(got == want, f"prefill launches {got}, expected {want}")
             check_wgmma("StarCoder2 prefill")
+            check_flash_routes("StarCoder2 prefill", "wgmma", want["flash_attention"])
             got["matmul_routes"] = dict(matmul.launches_by_route)
+            got["flash_attention_routes"] = dict(flash_attention.launches_by_route)
         ref = api.prefill_logits(params, cfg, batch, use_kernel=False)
     check(tuple(logits.shape) == (PREFILL_BATCH, PREFILL_SEQ, cfg.vocab),
           f"logits shape {tuple(logits.shape)}")
@@ -829,6 +909,7 @@ def phase_g(gen) -> dict:
           f"max |diff| {diff:.3e}")
 
     cfg = get_config(HYBRID_ARCH)
+    flash_route_cases("G", cfg)
     _, _, n_h = hybrid_dims(cfg)
     sc = cfg.ssm
     shape = (PREFILL_BATCH, PREFILL_SEQ, n_h, sc.head_dim, sc.state_dim)
@@ -928,13 +1009,17 @@ def phase_h(gen):
             got = counts()
             check(got == want, f"prefill launches {got}, expected {want}")
             check_wgmma("Zamba2 prefill")
+            check_flash_routes("Zamba2 prefill", "wgmma", want["flash_attention"])
             got["matmul_routes"] = dict(matmul.launches_by_route)
+            got["flash_attention_routes"] = dict(flash_attention.launches_by_route)
         plain16 = api.prefill_logits(params, cfg, batch, use_kernel=False)
         err16 = normalised_err(logits, plain16)
         blocks16, chain16 = hybrid_block_errors(params, cfg, tokens, torch.bfloat16, logits,
                                                 plain16)
         params32 = cast_tree(params, torch.float32)
+        reset_counts()
         out32 = api.prefill_logits(params32, cfg, batch, compute_dtype=torch.float32)
+        check_flash_routes("Zamba2 fp32 prefill", "simt", want["flash_attention"])
         plain32 = api.prefill_logits(params32, cfg, batch, compute_dtype=torch.float32,
                                      use_kernel=False)
         err32 = normalised_err(out32, plain32)
@@ -1135,6 +1220,28 @@ def matmul_floors(rows, hybrid_rows) -> None:
               f"{r_tick:.2f}x back to back at decode (floor 2x)")
 
 
+def flash_floor(rows, hybrid_rows) -> None:
+    """The redesigned flash attention against SDPA in this run, bf16: the sum
+    over one prefill of back-to-back calls at most FLASH_FLOORS[arch] x
+    SDPA's. RMSNorm's single-call and back-to-back sums are printed beside
+    F.rms_norm's (not gated)."""
+    for arch, by in ((LM_ARCH, rows), (HYBRID_ARCH, hybrid_rows)):
+        fl = lm_summary(by["flash_attention"][torch.bfloat16], "prefill")
+        ratio = fl["b2b_ms"] / fl["b2b_library_ms"]
+        print(f"flash_attention {arch} bf16 prefill: {fl['ms']:.3f} ms of single calls against "
+              f"SDPA {fl['library_ms']:.3f} ms; back to back {fl['b2b_ms']:.3f} ms against "
+              f"{fl['b2b_library_ms']:.3f} ms ({ratio:.2f}x; bound {fl['bound_ms']:.3f} ms "
+              f"({fl['bound_by']}), {fl['bound_ms'] / fl['b2b_ms']:.1%} of it)")
+        for per in ("prefill", "decode tick"):
+            rm = lm_summary(by["rmsnorm"][torch.bfloat16], per)
+            print(f"rmsnorm {arch} bf16 {per}: {rm['ms']:.3f} ms of single calls against "
+                  f"F.rms_norm {rm['library_ms']:.3f} ms; back to back {rm['b2b_ms']:.3f} ms "
+                  f"against {rm['b2b_library_ms']:.3f} ms; bound {rm['bound_ms']:.3f} ms")
+        check(ratio <= FLASH_FLOORS[arch],
+              f"{arch}: bf16 flash attention at {ratio:.2f}x SDPA back to back "
+              f"(floor {FLASH_FLOORS[arch]}x)")
+
+
 def lm_entries(rows, launches, serving, hybrid_rows, hybrid_launches, hybrid_serving) -> list:
     """One entry per LM kernel: StarCoder2-3B's prefill (phases D-F) at the top
     level with Zamba2-2.7B's (phases G-I) beside it; the SSD runs on Zamba2 only."""
@@ -1149,6 +1256,8 @@ def lm_entries(rows, launches, serving, hybrid_rows, hybrid_launches, hybrid_ser
         if name == "matmul":
             out["launches_by_route"] = prefill["matmul_routes"]
             out["serving_launches_by_route"] = serve["matmul_routes"]
+        if name == "flash_attention":
+            out["launches_by_route"] = prefill["flash_attention_routes"]
         return out
 
     entries = []
@@ -1208,6 +1317,7 @@ def main() -> int:
 
     conv_floor(rows)
     matmul_floors(lm_rows, hybrid_rows)
+    flash_floor(lm_rows, hybrid_rows)
     entry = {"name": "conv2d", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
              "dtype": "float32", **launches[torch.float32],
              **vgg_forward_summary(rows[torch.float32]),

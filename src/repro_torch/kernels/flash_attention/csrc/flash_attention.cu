@@ -1,4 +1,4 @@
-// Flash attention (online softmax, GQA, causal, sliding window) for Hopper.
+// Flash attention (online softmax, GQA, causal, sliding window) for Hopper (sm_90a).
 //
 // Replaces the TPU kernel
 // repro/kernels/flash_attention/flash_attention.py::flash_attention_bhsd
@@ -10,53 +10,74 @@
 // the queries aligned to the end of the key timeline (query s sits at
 // position s + Sk - S, as repro/kernels/flash_attention/ref.py and
 // layers.gqa_attention align it), and with a window, t > pos - window. The
-// running max, sum and output are fp32, as in the Pallas kernel (so P stays
-// fp32 for the PV product); the output is cast to the input type (fp32 or
-// bf16). Masked scores are -1e30 and masked probabilities exactly 0, and
-// the sum is clamped at 1e-30, so a row with no key gives 0, not NaN.
+// running max, sum and output are fp32; the output is cast to the input
+// type (fp32 or bf16). Masked probabilities are exactly 0 and the sum is
+// clamped at 1e-30, so a row with no key gives 0, not NaN.
 //
 // What bounds it on the H100. StarCoder2-3B's prefill at batch 4 x 512
 // tokens: q (4, 512, 24, 128), k and v (4, 512, 2, 128), causal. The
-// causal half of 4*B*H*S*Sk*hd is 6.4 GFLOP on 13 MB: ~500 operations per
-// byte, so operations bound it, and in bf16 the bound is the tensor cores.
-// This kernel runs on the CUDA cores in fp32 (bf16 is widened on the
-// load), so its ceiling is the 67 TFLOP/s fp32 rate.
+// causal half of 4*B*H*S*Sk*hd is 6.4 GFLOP, 6.5 us on the bf16 tensor
+// cores; reading q, k, v and writing the output is 27 MB, 8.1 us at
+// 3.35 TB/s: bytes bound it, narrowly. Zamba2-2.7B's (32 heads of 80, no
+// GQA) is the same picture at 5.4 GFLOP and 42 MB.
 //
-// What the design does about it.
-//  * One block of 256 threads per (b, h, 64 queries). The Q tile stays in
-//    shared memory; K and V tiles of 64 keys are staged in shared memory
-//    one after another, read from the KV head g by index (no K or V
-//    replication for GQA) and with bounds checks in place of padding, so
-//    any head dim up to 256 and any S, Sk work.
-//  * Key tiles that the causal structure or the window masks completely are
-//    never loaded: the loop runs only over the tiles the block's queries
-//    can see, which halves the work of causal prefill.
-//  * Each thread owns 4 query rows x 4 keys of the score tile and 4 rows x
-//    hd/16 columns of the output, all in fp32 registers. The row max and
-//    sum are reduced across the 16 threads of a row with warp shuffles, so
-//    m and l never leave registers; P goes through shared memory for the
-//    PV product. Padded strides (hd + 1) keep the shared-memory reads free
-//    of bank conflicts.
-//  * Tensor cores (wgmma on bf16), TMA and overlapping loads with compute
-//    are later work.
+// What the design does about it: two routes, chosen by the Python plan
+// (flash_attention.py) and checked here.
 //
-// The kernel allocates nothing, launches on the stream it is given and
-// returns cudaGetLastError(); the Python wrapper raises when that is not 0.
+//  * wgmma (bf16, hd % 8 == 0 and hd <= 128, q, k, v at 16-byte-aligned
+//    addresses: what TMA takes). One block per (b, h, 128 query rows), the
+//    heaviest causal query blocks launched first so that the triangle
+//    leaves no tail. q, k and v are 4-D tensor maps over (hd, heads, S, B)
+//    in boxes of 64 hd (one 128-byte swizzle row) x 1 head x rows x 1:
+//    hd > 64 takes two boxes, and TMA zero-fills the columns past hd (hd =
+//    80: the JAX wrapper's padding of hd to 128, with no padded copy) and
+//    the key rows past Sk. One producer warp loads the Q tile once and
+//    keeps a 2-stage ring of K and V tiles of 64 keys full (full and empty
+//    mbarriers). Two consumer warpgroups own 64 query rows each:
+//     - S = Q K^T on wgmma m64n64k16, A = Q and B = K as stored (keys x hd,
+//       hd contiguous: K-major, transpose bit clear), ceil(hd / 16) k
+//       steps (the all-zero steps past hd are skipped);
+//     - the online softmax on the accumulator fragment in registers: row
+//       max and sum across the 4 lanes that share a row by shuffles, exp2
+//       with the scale folded into log2(e), the mask computed only on
+//       tiles that cut the diagonal, the window's edge or Sk; tiles fully
+//       masked for the warpgroup's rows are not computed, and tiles fully
+//       masked for the block are never loaded;
+//     - O += P V on wgmma m64nNk16 with A from registers: the accumulator
+//       fragment of S columns [16j, 16j + 16), rounded to bf16 pairs, is
+//       the A fragment of k step j, so P never touches shared memory (P in
+//       bf16 is the one numerical change from the Pallas kernel, which
+//       keeps P in fp32); B = V as stored (keys x hd, hd contiguous:
+//       MN-major, transpose bit set), N = 64 or 128 (hd padded to whole
+//       atoms);
+//     - the epilogue scales by 1 / max(l, 1e-30) and writes bf16 pairs
+//       straight from the fragment into (B, S, H, hd), rows past S and
+//       columns past hd masked.
+//    Not done here: ping-pong between the warpgroups, the softmax
+//    overlapped with the next Q K^T, persistent blocks, N = 80 for PV.
+//  * simt (fp32, and bf16 shapes TMA cannot take): the CUDA-core kernel of
+//    the port's first version. One block of 256 threads per (b, h, 64
+//    queries); Q, K and V tiles of 64 rows staged in shared memory as fp32,
+//    read from the KV head by index, bounds-checked, any hd up to 256;
+//    each thread owns 4 rows x 4 keys of the score tile and 4 rows x hd/16
+//    output columns in registers, P goes through shared memory. Its ceiling
+//    is the 67 TFLOP/s fp32 rate; fp32 stays here because the tensor cores
+//    would miss the fp32 tolerance.
+//
+// The kernels allocate nothing and launch on the stream they are given;
+// the entry point returns cudaGetLastError() (or the error of a refused
+// argument) and the Python wrapper raises when that is not 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstddef>
+#include <cstdint>
+
+#include "hopper.cuh"  // kernels/include: PTX helpers, tensor-map encoders
 
 namespace {
-
-constexpr int BQ = 64;        // queries per block
-constexpr int BKV = 64;       // keys per tile
-constexpr int THREADS = 256;  // 16 x 16 threads
-constexpr int RPT = BQ / 16;  // query rows per thread
-constexpr int KPT = BKV / 16; // keys per thread in the score tile
-constexpr float NEG_INF = -1e30f;
-constexpr int SMEM_DEFAULT = 48 * 1024;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -70,6 +91,26 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
+// ---------------------------------------------------------------------------
+// simt route: CUDA cores, fp32 arithmetic
+// ---------------------------------------------------------------------------
+
+namespace simt {
+
+struct Shape {
+  int s, sk, h, kv, hd, window;  // window <= 0: none
+  int causal;
+  float scale;
+};
+
+constexpr int BQ = 64;        // queries per block
+constexpr int BKV = 64;       // keys per tile
+constexpr int THREADS = 256;  // 16 x 16 threads
+constexpr int RPT = BQ / 16;  // query rows per thread
+constexpr int KPT = BKV / 16; // keys per thread in the score tile
+constexpr float NEG_INF = -1e30f;
+constexpr int SMEM_DEFAULT = 48 * 1024;
+
 // Reduce across the 16 threads of one query row (lanes tx = 0..15 of a half warp).
 __device__ __forceinline__ float row_max(float v) {
 #pragma unroll
@@ -81,12 +122,6 @@ __device__ __forceinline__ float row_sum(float v) {
   for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
-
-struct Shape {
-  int s, sk, h, kv, hd, window;  // window <= 0: none
-  int causal;
-  float scale;
-};
 
 size_t smem_floats(int hd) {
   const int hv = (hd + 15) / 16 * 16;
@@ -260,26 +295,355 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int b
   return cudaErrorInvalidValue;
 }
 
+}  // namespace simt
+
+// ---------------------------------------------------------------------------
+// wgmma route: TMA + mbarrier ring + tensor cores, bf16
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+using hopper::ATOM;                   // bf16 values in one 128-byte swizzle row
+constexpr int BQ = 128;               // query rows per block
+constexpr int CONSUMERS = 2;          // warpgroups of 64 rows
+constexpr int THREADS = 128 * CONSUMERS + 32;  // and one producer warp
+constexpr uint32_t ROW_BYTES = 128;   // one swizzle row: 64 values of hd
+// Descriptor stride from one group of 8 rows (8 x 128 bytes) to the next.
+constexpr uint32_t GROUP_BYTES = 1024;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 64-key tiles in a 2-stage ring: the warpgroups skip more of the causal
+// diagonal than with 128-key tiles, and a third stage gained nothing
+// (PERF.md, the sweep of this kernel's bring-up).
+constexpr int BK = 64;      // keys per K/V tile: the S wgmma's N
+constexpr int STAGES = 2;   // K/V tiles in flight
+
+template <int N_>
+struct Cfg {
+  static constexpr int N = N_;            // hd padded to whole atoms: 64 or 128
+  static constexpr int ATOMS = N / ATOM;  // boxes per row of q, k or v
+  static constexpr int Q_ATOM_BYTES = BQ * ROW_BYTES;
+  static constexpr int KV_ATOM_BYTES = BK * ROW_BYTES;
+  static constexpr int KV_BYTES = ATOMS * KV_ATOM_BYTES;  // the K (or V) tile
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  // Q, the stages, 1024-byte aligned inside the block's window, then the
+  // barriers (Q's, the full ones, the empty ones)
+  static constexpr int SMEM = 1024 + ATOMS * Q_ATOM_BYTES + STAGES * STAGE_BYTES +
+                              (1 + 2 * STAGES) * 8;
+  static_assert(N == 64 || N == 128, "one or two atoms of hd");
+  static_assert(SMEM <= 232448, "fits the block's shared memory");
+};
+
+struct Geo {
+  int s, sk, h, kv, hd, window, causal;  // window <= 0: none
+  float scale_log2;                      // 1 / sqrt(hd) * log2(e)
+};
+
+// S (64 x BK) = Q (64 rows at qa) @ K^T (BK rows at kb), both K-major in
+// shared memory, over KSTEPS steps of 16 of hd (32 bytes along the rows;
+// step kk in atom kk / 4), then committed. KSTEPS is a constant so that
+// nothing but the products runs between the fence and the commit: a branch
+// there serializes the products (ptxas C7515).
+template <typename CF, int KSTEPS>
+__device__ __forceinline__ void qk_tile(float (&s)[BK / 2], uint32_t qa, uint32_t kb) {
+  using namespace hopper;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    const uint32_t off = (kk % 4) * 32;
+    const uint64_t da = make_desc(qa + (kk / 4) * CF::Q_ATOM_BYTES + off, 16, GROUP_BYTES);
+    const uint64_t db = make_desc(kb + (kk / 4) * CF::KV_ATOM_BYTES + off, 16, GROUP_BYTES);
+    wgmma_m64n64k16<0>(s, da, db, kk > 0);
+  }
+  wgmma_commit();
+}
+
+// qk_tile over the ceil(hd / 16) steps that are not all zero.
+template <typename CF>
+__device__ __forceinline__ void qk(int ksteps, float (&s)[BK / 2], uint32_t qa, uint32_t kb) {
+  if constexpr (CF::N == 64) {
+    switch (ksteps) {
+      case 1: qk_tile<CF, 1>(s, qa, kb); break;
+      case 2: qk_tile<CF, 2>(s, qa, kb); break;
+      case 3: qk_tile<CF, 3>(s, qa, kb); break;
+      default: qk_tile<CF, 4>(s, qa, kb); break;
+    }
+  } else {
+    switch (ksteps) {
+      case 1: qk_tile<CF, 1>(s, qa, kb); break;
+      case 2: qk_tile<CF, 2>(s, qa, kb); break;
+      case 3: qk_tile<CF, 3>(s, qa, kb); break;
+      case 4: qk_tile<CF, 4>(s, qa, kb); break;
+      case 5: qk_tile<CF, 5>(s, qa, kb); break;
+      case 6: qk_tile<CF, 6>(s, qa, kb); break;
+      case 7: qk_tile<CF, 7>(s, qa, kb); break;
+      default: qk_tile<CF, 8>(s, qa, kb); break;
+    }
+  }
+}
+
+// O (64 x N) += P (registers) @ V (MN-major in shared memory).
+template <int N>
+__device__ __forceinline__ void pv_step(float (&o)[N / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 128)
+    hopper::wgmma_m64n128k16_rs(o, a, db);
+  else
+    hopper::wgmma_m64n64k16_rs(o, a, db);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <typename CF>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_wgmma(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+            const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ o,
+            const Geo g) {
+  using namespace hopper;
+  constexpr int N = CF::N, ATOMS = CF::ATOMS;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t kv0 = sq + ATOMS * CF::Q_ATOM_BYTES;
+  const uint32_t q_bar = kv0 + STAGES * CF::STAGE_BYTES;
+  const uint32_t full0 = q_bar + 8, empty0 = full0 + STAGES * 8;
+
+  // Blocks walk the heads fastest (the query heads of one KV head share its
+  // tiles in L2), then the query blocks, heaviest first.
+  const int b = blockIdx.x / g.h, h = blockIdx.x - b * g.h;
+  const int grp = h / (g.h / g.kv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int shift = g.sk - g.s;  // position of query 0 in the key timeline
+  // The keys the block's queries can see, [t_lo, t_hi), in tiles from t_lo.
+  const int pos_lo = q0 + shift, pos_hi = min(q0 + BQ, g.s) - 1 + shift;
+  const int t_hi = g.causal ? min(g.sk, pos_hi + 1) : g.sk;
+  const int t_lo = g.window > 0 ? max(0, pos_lo - g.window + 1) / BK * BK : 0;
+  const int n_tiles = t_hi > t_lo ? (t_hi - t_lo + BK - 1) / BK : 0;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(q_bar, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full0 + 8 * st, 1);                 // the producer's expect_tx
+      mbar_init(empty0 + 8 * st, CONSUMERS * 128);  // every consumer thread
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS * 128) {  // the producer warp; one thread issues
+    if (tid == CONSUMERS * 128) {
+      // Boxes count whole on the barriers, their zero fill included.
+      mbar_arrive_expect_tx(q_bar, ATOMS * CF::Q_ATOM_BYTES);
+      for (int a = 0; a < ATOMS; ++a)
+        tma_load_4d(sq + a * CF::Q_ATOM_BYTES, &map_q, q_bar, a * ATOM, h, q0, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % STAGES;
+        mbar_wait(empty0 + 8 * st, ((it / STAGES) & 1) ^ 1);
+        const uint32_t full = full0 + 8 * st, sk = kv0 + st * CF::STAGE_BYTES;
+        const int t0 = t_lo + it * BK;
+        mbar_arrive_expect_tx(full, CF::STAGE_BYTES);
+        for (int a = 0; a < ATOMS; ++a) {
+          tma_load_4d(sk + a * CF::KV_ATOM_BYTES, &map_k, full, a * ATOM, grp, t0, b);
+          tma_load_4d(sk + CF::KV_BYTES + a * CF::KV_ATOM_BYTES, &map_v, full, a * ATOM, grp,
+                      t0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // Fragment of m64nX: warp w of the warpgroup holds rows 16w + lane/4
+  // (+ 8), columns 8j + 2 (lane % 4) (+ 1) in d[4j + {0, 1}] (+ {2, 3}).
+  const int wgi = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int r_wg = q0 + wgi * 64;                    // the warpgroup's first row
+  const int w_lo = r_wg + shift, w_hi = w_lo + 63;   // and its positions
+  const int row0 = r_wg + warp * 16 + lane / 4;      // this thread's rows: row0, row0 + 8
+  const int col0 = 2 * (lane % 4);
+  const int ksteps = (g.hd + 15) / 16;               // Q K^T steps that are not all zero
+  const uint32_t qa = sq + wgi * 64 * ROW_BYTES;
+
+  float acc[N / 2], s[BK / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // l: this thread's partial sums
+  fence_operands(acc);
+  mbar_wait(q_bar, 0);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % STAGES;
+    const int t0 = t_lo + it * BK;
+    mbar_wait(full0 + 8 * st, (it / STAGES) & 1);
+    const bool skip = r_wg >= g.s || t0 >= g.sk || (g.causal && t0 > w_hi) ||
+                      (g.window > 0 && t0 + BK - 1 <= w_lo - g.window);
+    if (!skip) {
+      const uint32_t kb = kv0 + st * CF::STAGE_BYTES, vb = kb + CF::KV_BYTES;
+      qk<CF>(ksteps, s, qa, kb);
+      wgmma_wait<0>();
+      fence_operands(s);
+
+      // Scores in log2 units; masked ones -inf, on the tiles that need a mask.
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) s[i] *= g.scale_log2;
+      const bool edge = t0 + BK > g.sk || (g.causal && t0 + BK - 1 > w_lo) ||
+                        (g.window > 0 && t0 <= w_hi - g.window);
+      if (edge) {
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int pos = row0 + 8 * hh + shift;
+#pragma unroll
+            for (int bb = 0; bb < 2; ++bb) {
+              const int t = t0 + 8 * j + col0 + bb;
+              const bool ok = t < g.sk && (!g.causal || t <= pos) &&
+                              (g.window <= 0 || t > pos - g.window);
+              if (!ok) s[4 * j + 2 * hh + bb] = -INFINITY;
+            }
+          }
+      }
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          mx[hh] = fmaxf(mx[hh], fmaxf(s[4 * j + 2 * hh], s[4 * j + 2 * hh + 1]));
+      float alpha[2], mu[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {  // the 4 lanes of a row
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+        mu[hh] = mx[hh] == -INFINITY ? 0.f : mx[hh];  // a row with no key yet: p = 0
+        alpha[hh] = exp2f(m[hh] - mu[hh]);
+        m[hh] = mx[hh];
+      }
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int bb = 0; bb < 2; ++bb) {
+            float& x = s[4 * j + 2 * hh + bb];
+            x = exp2f(x - mu[hh]);
+            rs[hh] += x;
+          }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) l[hh] = l[hh] * alpha[hh] + rs[hh];
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        acc[4 * j] *= alpha[0];
+        acc[4 * j + 1] *= alpha[0];
+        acc[4 * j + 2] *= alpha[1];
+        acc[4 * j + 3] *= alpha[1];
+      }
+      // P in bf16, as the A fragments of the PV steps (16 keys each).
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+      fence_operands(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)  // 16 keys a step: 16 rows of V
+        pv_step<N>(acc, pa[kk],
+                   make_desc(vb + kk * 16 * ROW_BYTES, CF::KV_ATOM_BYTES, GROUP_BYTES));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(acc);
+    }
+    mbar_arrive(empty0 + 8 * st);  // this thread is done with the stage
+  }
+
+  // Epilogue: the row sums across the 4 lanes, 1 / max(l, 1e-30), bf16
+  // pairs straight from the fragment; rows past S and columns past hd masked.
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float sum = l[hh];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float inv = 1.f / fmaxf(sum, 1e-30f);
+    const int row = row0 + 8 * hh;
+    if (row >= g.s) continue;
+    __nv_bfloat16* orow = o + (((size_t)b * g.s + row) * g.h + h) * g.hd;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const int col = 8 * j + col0;  // even, and hd % 8 == 0: col + 1 < hd too
+      if (col < g.hd)
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * hh] * inv, acc[4 * j + 2 * hh + 1] * inv);
+    }
+  }
+}
+
+template <typename CF>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int batch, const Geo& g,
+                   int device, cudaStream_t stream) {
+  const long long q_blocks = (g.s + BQ - 1) / BQ;
+  if (q_blocks > 65535 || (long long)batch * g.h > 0x7fffffffLL) return cudaErrorInvalidValue;
+  CUtensorMap map_q, map_k, map_v;
+  if (!hopper::encode_4d(&map_q, q, batch, g.s, g.h, g.hd, 1, BQ) ||
+      !hopper::encode_4d(&map_k, k, batch, g.sk, g.kv, g.hd, 1, BK) ||
+      !hopper::encode_4d(&map_v, v, batch, g.sk, g.kv, g.hd, 1, BK))
+    return cudaErrorInvalidValue;
+  // Above 48 KB of dynamic shared memory a kernel must opt in, once per device.
+  static std::atomic<unsigned long long> ready{0};
+  const unsigned long long bit = 1ull << (device & 63);
+  if (!(ready.load(std::memory_order_relaxed) & bit)) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_wgmma<CF>, cudaFuncAttributeMaxDynamicSharedMemorySize, CF::SMEM);
+    if (e != cudaSuccess) return e;
+    ready.fetch_or(bit);
+  }
+  flash_wgmma<CF><<<dim3(batch * g.h, (unsigned)q_blocks), THREADS, CF::SMEM, stream>>>(
+      map_q, map_k, map_v, static_cast<__nv_bfloat16*>(o), g);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
+cudaError_t on_device(int device) {
+  int current = -1;
+  cudaError_t e = cudaGetDevice(&current);
+  if (e == cudaSuccess && current != device) e = cudaSetDevice(device);
+  return e;
+}
+
 }  // namespace
 
 extern "C" {
 
 // q, o (B, S, H, hd); k, v (B, Sk, KV, hd), contiguous; H a multiple of KV.
-// window <= 0: no window. dtype: 0 = float32, 1 = bfloat16. Returns a
-// cudaError_t (0 on success).
+// window <= 0: no window. dtype: 0 = float32, 1 = bfloat16. route: 0 =
+// simt, 1 = wgmma (bf16, hd % 8 == 0, hd <= 128, q, k, v 16-byte aligned).
+// Returns a cudaError_t (0 on success).
 int repro_flash_attention(const void* q, const void* k, const void* v, void* o, int batch,
                           int s, int sk, int h, int kv, int hd, int causal, int window,
-                          float scale, int dtype, int device, void* stream) {
-  cudaError_t e = cudaSetDevice(device);
+                          float scale, int dtype, int route, int device,
+                          void* stream) {
+  cudaError_t e = on_device(device);
   if (e != cudaSuccess) return (int)e;
-  if (h % kv != 0) return (int)cudaErrorInvalidValue;
-  const Shape p{s, sk, h, kv, hd, window, causal, scale};
+  if (kv < 1 || h % kv != 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return (int)dispatch<float>(q, k, v, o, batch, p, st);
-    case 1: return (int)dispatch<__nv_bfloat16>(q, k, v, o, batch, p, st);
-    default: return (int)cudaErrorInvalidValue;
+  if (route == 0) {
+    const simt::Shape p{s, sk, h, kv, hd, window, causal, scale};
+    switch (dtype) {
+      case 0: return (int)simt::dispatch<float>(q, k, v, o, batch, p, st);
+      case 1: return (int)simt::dispatch<__nv_bfloat16>(q, k, v, o, batch, p, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
+  if (route != 1 || dtype != 1 || hd % 8 || hd < 8 || hd > 128 ||
+      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 || (uintptr_t)o % 4)
+    return (int)cudaErrorInvalidValue;
+  const wg::Geo g{s, sk, h, kv, hd, window, causal, scale * wg::LOG2E};
+  // hd padded to whole atoms picks the configuration
+  return (int)(hd <= 64 ? wg::launch<wg::Cfg<64>>(q, k, v, o, batch, g, device, st)
+                        : wg::launch<wg::Cfg<128>>(q, k, v, o, batch, g, device, st));
 }
 
 const char* repro_cuda_error_string(int err) {

@@ -7,14 +7,16 @@ The counterparts of ``repro/kernels/flash_attention/ops.py``:
 causal mask aligns the queries to the end of the key timeline (offset
 Sk - S), as ``attention_ref`` does; the Pallas kernel starts them at 0,
 which is the same when S = Sk. A CUDA tensor launches the CUDA kernel (or
-raises); a CPU tensor takes the plain version ``attention_ref``.
-``flash_attention.launches`` counts kernel launches.
+raises) on the route ``flash_attention.plan_for`` picks; a CPU tensor takes
+the plain version ``attention_ref``. ``flash_attention.launches`` counts
+kernel launches, one per call, and ``flash_attention.launches_by_route``
+splits them by route (``wgmma``, ``simt``).
 """
 from __future__ import annotations
 
 import torch
 
-from .flash_attention import DTYPE_CODES, flash_attention_bshd
+from .flash_attention import DTYPE_CODES, ROUTES, launch, plan_for
 from .ref import attention_ref
 
 _MAX_HD = 256        # the kernel's widest head (shared-memory tiles of 64 rows)
@@ -55,12 +57,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
     out = torch.empty_like(q)
-    flash_attention_bshd(q, k, v, out, causal=causal, window=window)
+    route = plan_for(q, k, v)
+    launch(q, k, v, out, route, torch.cuda.current_stream(q.device).cuda_stream, causal=causal,
+           window=window)
     flash_attention.launches += 1
+    flash_attention.launches_by_route[route] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def attn_fn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,

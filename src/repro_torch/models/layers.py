@@ -191,8 +191,12 @@ def gqa_decode_attention(x, params, n_heads: int, n_kv: int, k_cache, v_cache, w
         q = apply_rope(q, rope_pos[:, None], rope_theta)
         k = apply_rope(k, rope_pos[:, None], rope_theta)
 
-    # Write new kv at write_pos (one-hot blend, as the reference keeps shapes static).
-    onehot = F.one_hot(write_pos.long(), s_slots).to(cd)  # (B, S_slots)
+    # Write new kv at write_pos (one-hot blend, as the reference keeps shapes
+    # static). Built by comparison, as jax.nn.one_hot is: a position outside
+    # [0, S_slots) gives an all-zero row, so that write is dropped; no
+    # scatter, so the step can be captured in a CUDA graph.
+    slots = torch.arange(s_slots, device=write_pos.device)
+    onehot = (slots[None] == write_pos[:, None]).to(cd)  # (B, S_slots)
     k_cache = k_cache * (1 - onehot)[..., None, None] + onehot[..., None, None] * k
     v_cache = v_cache * (1 - onehot)[..., None, None] + onehot[..., None, None] * v
 

@@ -125,6 +125,33 @@ def test_decode_matches_jax_tick_by_tick(arch, name, models):
             assert _err(tcache[key].float().numpy(), jcache[key]) <= TOL[name], (t, key)
 
 
+def test_decode_past_cache_end_matches_jax(models):
+    """A decode step at a position past the cache (pos 4 of s_max = 4): the
+    reference's one-hot drops the write and still returns logits; the port
+    builds the same mask (ROADMAP queue 3, fault 6). fp32 at 2e-4, logits
+    and both caches after every step."""
+    jcfg, jparams, cfg, tparams = models("starcoder2-3b")
+    s_max, steps = 4, 5
+    toks = np.random.default_rng(5).integers(0, cfg.vocab, (1, steps))
+    jcache = jax_api.init_cache(jcfg, 1, s_max, dtype=jnp.float32)
+    tcache = api.init_cache(cfg, 1, s_max, torch.float32, device="cpu")
+    for t in range(steps):
+        pos = np.array([t], np.int32)
+        jlogits, jcache = jax_api.decode_step(jparams, jcfg, jcache, jnp.asarray(toks[:, t:t + 1]),
+                                              jnp.asarray(pos), compute_dtype=jnp.float32)
+        with torch.inference_mode():
+            logits, new = api.decode_step(tparams, cfg, tcache, torch.from_numpy(toks[:, t:t + 1]),
+                                          torch.from_numpy(pos).long(),
+                                          compute_dtype=torch.float32)
+        assert logits.shape == (1, cfg.vocab) and bool(torch.isfinite(logits).all())
+        assert _err(logits.numpy(), jlogits) <= 2e-4, t
+        for key in ("k", "v"):
+            assert _err(new[key].numpy(), jcache[key]) <= 2e-4, (t, key)
+            if t >= s_max:  # the write past the cache is dropped
+                assert torch.equal(new[key], tcache[key]), (t, key)
+        tcache = new
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("use_kernel", [False, True])
 def test_decode_matches_prefill_last_token(arch, use_kernel, models):

@@ -229,6 +229,33 @@ def test_decode_matches_jax_fp32_tick_by_tick(zamba):
             assert _err(tc[t][key], jc[t][key]) <= 2e-4, (t, key)
 
 
+def test_decode_past_cache_end_matches_jax(zamba):
+    """The hybrid's twin of test_torch_lm.py::test_decode_past_cache_end_matches_jax:
+    positions 0..4 on a cache of s_max = 4; the attention write at pos 4 is
+    dropped, as jax.nn.one_hot drops it, and the step still returns logits
+    (ROADMAP queue 3, fault 6). fp32 at 2e-4, logits and every cache key."""
+    jcfg, jparams, cfg, tparams = zamba
+    s_max, steps = 4, 5
+    toks = _tokens(cfg, steps, seed=5, batch=1)
+    jcache = jax_api.init_cache(jcfg, 1, s_max, dtype=jnp.float32)
+    tcache = api.init_cache(cfg, 1, s_max, torch.float32, device="cpu")
+    for t in range(steps):
+        pos = np.array([t], np.int32)
+        jlogits, jcache = jax_api.decode_step(jparams, jcfg, jcache, jnp.asarray(toks[:, t:t + 1]),
+                                              jnp.asarray(pos), compute_dtype=jnp.float32)
+        with torch.inference_mode():
+            logits, new = api.decode_step(tparams, cfg, tcache, torch.from_numpy(toks[:, t:t + 1]),
+                                          torch.from_numpy(pos).long(),
+                                          compute_dtype=torch.float32)
+        assert logits.shape == (1, cfg.vocab) and bool(torch.isfinite(logits).all())
+        assert _err(_np(logits), jlogits) <= 2e-4, t
+        for key in jcache:
+            assert _err(_np(new[key]), jcache[key]) <= 2e-4, (t, key)
+        if t >= s_max:  # the attention write past the cache is dropped
+            assert torch.equal(new["k"], tcache["k"]) and torch.equal(new["v"], tcache["v"])
+        tcache = new
+
+
 def test_decode_bf16_blocks_match_jax(zamba):
     """Every Mamba2 layer's decode step in bf16, fed JAX's input and states
     on every one of 40 ticks: output and both new states at 2e-2."""
