@@ -52,8 +52,11 @@ any failure raises and exits non-zero.
       events after an L2 flush, the device kept busy while the host queues
       them (matmul rows cycle over copies of the weight so that each call
       reads it from device memory); matmul rows print the route, tile and
-      K splits of the kernel's plan, flash rows the route. The host microseconds per matmul wrapper call on a
-      decode shape are printed beside torch.matmul's.
+      K splits of the kernel's plan, flash rows the route, RMSNorm rows the
+      plan (route, vectors a thread, threads a row, rows a block, 16-byte
+      loads or not). The host microseconds per matmul and RMSNorm wrapper
+      call on a decode shape are printed beside torch.matmul's and
+      F.rms_norm's.
   (E) Prefill: ``api.prefill_logits`` on StarCoder2-3B at full width and
       depth, bf16 weights from a seeded generator, batch 4 x 512 tokens,
       against ``forward(use_kernel=False)``: normalised error at most
@@ -69,20 +72,29 @@ any failure raises and exits non-zero.
       batcher's on the same requests.
   (G) The SSD kernel against its plain version ``ssd_ref`` at Zamba2-2.7B's
       prefill shape (x (4, 512, 80, 64), b and c (4, 512, 64), chunk 256)
-      in fp32 and with the model's bf16 x, b, c, and at the small shapes of
-      the kernel tests (tests/test_kernels.py::SSD_CASES, S < chunk), with
-      chunk invariance (32 against 128); atol = rtol = 2e-4 (fp32), 2e-2
-      (bf16), the normalised error printed beside it. Then flash attention
-      at Zamba2's heads (hd 80) on ATTN_ROUTE_CASES, and matmul, RMSNorm
-      and flash attention at every shape Zamba2's prefill and decode tick
-      give them. Times and bounds as in phase D; no PyTorch call computes
-      the SSD, so its library time is "none".
+      in fp32 and with the model's bf16 x, b, c, at the small shapes of
+      the kernel tests (tests/test_kernels.py::SSD_CASES, S < chunk), and
+      at Zamba2's heads on SSD_ROUTE_CASES (chunks of 64, 128, 256, S <
+      chunk, decays that overflow fp32 above the diagonal), with chunk
+      invariance (32 against 128); every SSD call counted on the route its
+      plan names (bf16 ``wgmma``, fp32 ``simt``); atol = rtol = 2e-4 (fp32),
+      2e-2 (bf16), the normalised error printed beside it. Then flash
+      attention at Zamba2's heads (hd 80) on ATTN_ROUTE_CASES, the host
+      microseconds per SSD, matmul and RMSNorm wrapper call, and matmul,
+      RMSNorm and flash attention at every shape Zamba2's prefill and decode
+      tick give them. Times and bounds as in phase D; the SSD row adds its
+      back-to-back time (L2 flushed, the inputs cycled over copies so each
+      call reads them from device memory) and its device time by kernel
+      (``torch.profiler``: the wgmma route's ``ssd_states`` and
+      ``ssd_outputs``, the wrapper's ``a = -exp(a_log)``); no PyTorch call
+      computes the SSD, so its library time is "none".
   (H) Prefill: ``api.prefill_logits`` on Zamba2-2.7B at full width and depth
       (54 Mamba2 layers, 9 uses of the shared attention block), bf16
       weights from a seeded generator, batch 4 x 512 (two SSD chunks):
       finite (4, 512, 32000) fp32 logits, exactly 280 matmul (all wgmma),
       127 RMSNorm, 9 flash-attention (all wgmma; the fp32 forward's 9 all
-      simt) and 54 SSD launches per forward. Each of the 63
+      simt) and 54 SSD launches (all wgmma; the fp32 forward's 54 all simt)
+      per forward. Each of the 63
       blocks and the head is held kernel route against plain route fed the
       same input: normalised error at most 2e-2 in bf16 and 2e-4 in fp32.
       The end-to-end errors (bf16 and fp32) are printed, not gated: with
@@ -105,8 +117,10 @@ single calls over one forward at most 1.5x cuDNN's), the bf16 matmul of
 both LMs to torch.matmul (the prefill sum of single calls at most 4x
 torch.matmul's, the decode tick's back-to-back sum at most 2x), and the
 bf16 flash attention of a prefill, back to back, to SDPA's: at most 2x on
-StarCoder2 (hd 128), 3x on Zamba2 (hd 80); it prints RMSNorm's single-call
-and back-to-back sums beside F.rms_norm's. Its last two
+StarCoder2 (hd 128), 3x on Zamba2 (hd 80), the bf16 RMSNorm of each LM's
+prefill, back to back, to at most 1.05x F.rms_norm's (the single-call and
+decode sums printed), and the bf16 SSD at Zamba2's prefill shape, back to
+back, to at most 10x its bytes bound. Its last two
 lines are the kernel summary (one JSON object) and the result
 ``{"ok": true, "device": {...}}``. There is no CPU fallback: without a CUDA
 device it exits non-zero and prints no result.
@@ -144,8 +158,10 @@ from repro_torch.kernels.matmul.matmul import plan_for  # noqa: E402
 from repro_torch.kernels.matmul.ops import matmul  # noqa: E402
 from repro_torch.kernels.matmul.ref import matmul_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm.ops import rmsnorm  # noqa: E402
+from repro_torch.kernels.rmsnorm.rmsnorm import plan_for as rms_plan_for  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
 from repro_torch.kernels.ssd.ops import ssd  # noqa: E402
+from repro_torch.kernels.ssd.ssd import plan_for as ssd_plan_for  # noqa: E402
 from repro_torch.kernels.ssd.ref import ssd_ref  # noqa: E402
 from repro_torch.models import api, layers, ssm, transformer  # noqa: E402
 from repro_torch.models.cnn import (HybridPlan, forward, hybrid_forward,  # noqa: E402
@@ -468,6 +484,19 @@ ROUTE_NAMES = ("simt", "wgmma")
 FLASH_FLOORS = {LM_ARCH: 2.0, HYBRID_ARCH: 3.0}
 SSD_SMALL = [(2, 128, 4, 32, 16, 32), (1, 256, 2, 64, 32, 64), (1, 64, 8, 16, 64, 16),
              (1, 100, 3, 16, 8, 256)]
+# The SSD's routes at Zamba2's heads (P = N = 64) in chunks of 64, 128 and
+# 256 rows and S < chunk (q = 200, a ragged tile), then decays that overflow
+# fp32 above the diagonal (a = -exp(3), dt in [1, 2]): (B, S, H, chunk, steep),
+# drawn from a generator of their own so that the later phases draw what they
+# drew before.
+SSD_ROUTE_CASES = [(2, 512, 8, 64, False), (2, 512, 8, 128, False), (2, 512, 8, 256, False),
+                   (1, 200, 4, 256, False), (2, 512, 8, 256, True)]
+SSD_ROUTE_SEED = 17
+# The bf16 SSD of Zamba2's prefill back to back at most this times its bytes
+# bound; the bf16 RMSNorm of each LM's prefill back to back at most this
+# times F.rms_norm's (both in this run).
+SSD_BOUND_FLOOR = 10.0
+RMS_FLOOR = 1.05
 
 
 def normalised_err(out, ref) -> float:
@@ -528,6 +557,7 @@ def reset_counts() -> None:
         fn.launches = 0
     matmul.launches_by_route = dict.fromkeys(matmul.launches_by_route, 0)
     flash_attention.launches_by_route = dict.fromkeys(flash_attention.launches_by_route, 0)
+    ssd.launches_by_route = dict.fromkeys(ssd.launches_by_route, 0)
 
 
 def check_flash_routes(where: str, route: str, n: int) -> None:
@@ -539,6 +569,26 @@ def check_flash_routes(where: str, route: str, n: int) -> None:
 
 def expected_flash_route(dtype) -> str:
     return "wgmma" if dtype == torch.bfloat16 else "simt"
+
+
+def check_ssd_routes(where: str, route: str, n: int) -> None:
+    """The run just counted made ``n`` SSD launches, all on ``route``."""
+    want = {name: n if name == route else 0 for name in ROUTE_NAMES}
+    check(ssd.launches_by_route == want,
+          f"{where}: ssd routes {ssd.launches_by_route}, expected {want}")
+
+
+def counted_ssd(args, chunk: int):
+    """One SSD call that must launch once, on the route its plan names
+    (bf16 wgmma, fp32 simt)."""
+    x, _, _, b, c = args
+    route = ssd_plan_for(x, b, c, min(chunk, x.shape[1]))
+    check(route == expected_flash_route(x.dtype), f"ssd {x.dtype} planned {route}")
+    before, by = ssd.launches, dict(ssd.launches_by_route)
+    out = ssd(*args, chunk=chunk)
+    check(ssd.launches == before + 1 and ssd.launches_by_route[route] == by[route] + 1,
+          f"ssd routes {ssd.launches_by_route} (before {by}), expected one on {route}")
+    return out, route
 
 
 def counted_flash(q, k, v, causal: bool, window):
@@ -613,8 +663,11 @@ def print_row(phase: str, tag: str, dtype, desc: str, row: dict) -> None:
     elif "route" in row:
         extra = f"  {row['route']}"
     if "b2b_ms" in row:
+        b2b_lib = row.get("b2b_library_ms")
         extra += (f"  back to back: kernel {row['b2b_ms']:.4f} ms  library "
-                  f"{row['b2b_library_ms']:.4f} ms")
+                  + ("none" if b2b_lib is None else f"{b2b_lib:.4f} ms"))
+    if "plan" in row:
+        extra += f"  plan {row['plan']}"
     print(f"{phase} {name_of(dtype):8s} {tag:15s} {desc}: max_abs_err {row['max_abs_err']:.3e}  "
           f"kernel {row['ms']:.4f} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']})  "
           f"plain {row['plain_ms']:.4f} ms  library {lib}  "
@@ -654,8 +707,10 @@ def lm_kernel_rows(cfg, gen, phase: str) -> dict:
                                 lambda: F.rms_norm(x, (d,), sc, 1e-6),
                                 el * (2 * m * d + d), 4 * m * d, dtype,
                                 m=m, d=d, count=count, per=per)
+                p = rms_plan_for(x, sc, x)
                 row.update(b2b_ms=b2b_ms(lambda i: rmsnorm(x, sc)),
-                           b2b_library_ms=b2b_ms(lambda i: F.rms_norm(x, (d,), sc, 1e-6)))
+                           b2b_library_ms=b2b_ms(lambda i: F.rms_norm(x, (d,), sc, 1e-6)),
+                           plan=f"{p.route} vpt {p.vpt} tpr {p.tpr} rows {p.rows} vec {p.vec}")
                 print_row(phase, "rmsnorm", dtype, f"rows={m} D={d}", row)
                 rms_rows.append(row)
         b, s, h, kv, hd = PREFILL_BATCH, PREFILL_SEQ, cfg.n_heads, cfg.n_kv, cfg.head_dim
@@ -725,22 +780,28 @@ def host_us_per_call(fn, calls: int = 200) -> float:
 
 
 def print_host_path(phase: str, cfg) -> None:
-    """Host microseconds per matmul wrapper call on the decode tick's first
-    projection, beside torch.matmul's (operands from a generator of their
-    own, so the seeded draws of the later phases do not move)."""
+    """Host microseconds per wrapper call on the decode tick's first
+    projection (matmul) and its norm over d_model (RMSNorm), beside
+    torch.matmul's and F.rms_norm's (operands from a generator of their own,
+    so the seeded draws of the later phases do not move)."""
     k, n = next(iter(lm_products(cfg)))
     gen = torch.Generator(device="cuda").manual_seed(1)
     a, b = randn((SLOTS, k), torch.bfloat16, gen), randn((k, n), torch.bfloat16, gen)
     print(f"{phase} bfloat16 matmul host path M={SLOTS} K={k} N={n}: wrapper "
           f"{host_us_per_call(lambda: matmul(a, b)):.1f} us per call, torch.matmul "
           f"{host_us_per_call(lambda: torch.matmul(a, b)):.1f} us per call")
+    d = cfg.d_model
+    x, sc = randn((SLOTS, d), torch.bfloat16, gen), randn((d,), torch.bfloat16, gen)
+    print(f"{phase} bfloat16 rmsnorm host path rows={SLOTS} D={d}: wrapper "
+          f"{host_us_per_call(lambda: rmsnorm(x, sc)):.1f} us per call, F.rms_norm "
+          f"{host_us_per_call(lambda: F.rms_norm(x, (d,), sc, 1e-6)):.1f} us per call")
 
 
 def lm_summary(rows, per: str) -> dict:
     """Per-shape numbers summed over one prefill forward or one decode tick."""
     rows = [r for r in rows if r["per"] == per]
-    keys = ("ms", "plain_ms", "bound_ms") + (("b2b_ms", "b2b_library_ms")
-                                             if "b2b_ms" in rows[0] else ())
+    keys = ("ms", "plain_ms", "bound_ms") + tuple(
+        key for key in ("b2b_ms", "b2b_library_ms") if rows[0].get(key) is not None)
     tot = {key: sum(r[key] * r["count"] for r in rows) for key in keys}
     if "route" in rows[0]:
         tot["routes"] = {route: sum(r["count"] for r in rows if r["route"] == route)
@@ -891,15 +952,63 @@ def ssd_work(b, s, h, p, n, chunk, dtype) -> tuple[float, float]:
     return nbytes, b * h * (s // q) * (q * (q + 1) * (n + p) + 4 * q * p * n)
 
 
+def ssd_route_cases(phase: str, cfg) -> None:
+    """The SSD kernel against ssd_ref at ``cfg``'s heads on SSD_ROUTE_CASES,
+    bf16 on wgmma and fp32 on simt; the steep case must stay finite."""
+    gen = torch.Generator(device="cuda").manual_seed(SSD_ROUTE_SEED)
+    p, n = cfg.ssm.head_dim, cfg.ssm.state_dim
+    for dtype in DTYPES:
+        for b, s, h, chunk, steep in SSD_ROUTE_CASES:
+            x, dt, a_log, bb, cc = ssd_inputs(b, s, h, p, n, dtype, gen)
+            if steep:
+                dt, a_log = dt + 1.0, torch.full_like(a_log, 3.0)
+            args = (x, dt, a_log, bb, cc)
+            out, route = counted_ssd(args, chunk)
+            ref = ssd_ref(*args, chunk=chunk)
+            err = max_err_within(out, ref, TOL[dtype])
+            print(f"{phase} {name_of(dtype):8s} ssd B={b} S={s} H={h} P={p} N={n} chunk={chunk}"
+                  f"{' steep' if steep else ''}: {route}  max_abs_err {err:.3e}  normalised "
+                  f"{normalised_err(out, ref):.3e}")
+
+
+def device_us_by_kernel(fn, calls: int = 20) -> dict:
+    """Device microseconds a call of ``fn`` by CUDA kernel name, from
+    ``torch.profiler`` over ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.device_time_total:
+            name = ev.key.replace("(anonymous namespace)::", "").split("(")[0]
+            name = name.split("<")[0].split("::")[-1]
+            out[name] = out.get(name, 0.0) + ev.device_time_total / calls
+    return out
+
+
+def ssd_host_path(phase: str, shape, chunk: int) -> None:
+    """Host microseconds per SSD wrapper call at ``shape`` (bf16, inputs from a
+    generator of their own)."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    args = ssd_inputs(*shape, torch.bfloat16, gen)
+    print(f"{phase} bfloat16 ssd host path B={shape[0]} S={shape[1]} H={shape[2]} "
+          f"P={shape[3]} N={shape[4]} chunk={chunk}: wrapper "
+          f"{host_us_per_call(lambda: ssd(*args, chunk=chunk), calls=50):.1f} us per call")
+
+
 def phase_g(gen) -> dict:
     """The SSD kernel against ssd_ref, and the LM kernels at Zamba2's shapes."""
     for dtype in DTYPES:
         for b, s, h, p, n, chunk in SSD_SMALL:
             args = ssd_inputs(b, s, h, p, n, dtype, gen)
-            out, ref = ssd(*args, chunk=chunk), ssd_ref(*args, chunk=chunk)
+            (out, route), ref = counted_ssd(args, chunk), ssd_ref(*args, chunk=chunk)
             err = max_err_within(out, ref, TOL[dtype])
             print(f"G {name_of(dtype):8s} ssd B={b} S={s} H={h} P={p} N={n} chunk={chunk}: "
-                  f"max_abs_err {err:.3e}  normalised {normalised_err(out, ref):.3e}")
+                  f"{route}  max_abs_err {err:.3e}  normalised {normalised_err(out, ref):.3e}")
     x, dt, _, b, c = ssd_inputs(1, 128, 2, 16, 8, torch.float32, gen)
     a_log = torch.zeros(2, device="cuda")
     o32, o128 = ssd(x, dt, a_log, b, c, chunk=32), ssd(x, dt, a_log, b, c, chunk=128)
@@ -910,20 +1019,34 @@ def phase_g(gen) -> dict:
 
     cfg = get_config(HYBRID_ARCH)
     flash_route_cases("G", cfg)
+    ssd_route_cases("G", cfg)
     _, _, n_h = hybrid_dims(cfg)
     sc = cfg.ssm
     shape = (PREFILL_BATCH, PREFILL_SEQ, n_h, sc.head_dim, sc.state_dim)
+    ssd_host_path("G", shape, sc.chunk)
+    print_host_path("G", cfg)
     rows = {}
     for dtype in DTYPES:
         args = ssd_inputs(*shape, dtype, gen)
+        route = counted_ssd(args, sc.chunk)[1]
         row = timed_row(lambda: ssd(*args, chunk=sc.chunk),
                         lambda: ssd_ref(*args, chunk=sc.chunk), None,
                         *ssd_work(*shape, sc.chunk, dtype), dtype, shape=shape, chunk=sc.chunk,
                         count=cfg.n_layers, per="prefill")
+        # copies of the inputs, cycled, so that each call reads them from
+        # device memory as each layer's call does
+        copies = l2_copies(args[0])
+        copies = [(xc, *(t.clone() for t in args[1:])) if i else args
+                  for i, xc in enumerate(copies)]
+        row.update(route=route,
+                   b2b_ms=b2b_ms(lambda i: ssd(*copies[i % len(copies)], chunk=sc.chunk)))
         print_row("G", "ssd", dtype, "B={} S={} H={} P={} N={} chunk={}".format(
             *shape, sc.chunk) + f" (normalised {row['normalised_err']:.3e})", row)
+        split = device_us_by_kernel(lambda: ssd(*args, chunk=sc.chunk))
+        print(f"G {name_of(dtype):8s} ssd device us a call by kernel (torch.profiler): "
+              + "  ".join(f"{k} {us:.1f}" for k, us in split.items()))
         rows[dtype] = [row]
-        del args
+        del args, copies
     return {"ssd": rows, **lm_kernel_rows(cfg, gen, "G")}
 
 
@@ -1010,8 +1133,10 @@ def phase_h(gen):
             check(got == want, f"prefill launches {got}, expected {want}")
             check_wgmma("Zamba2 prefill")
             check_flash_routes("Zamba2 prefill", "wgmma", want["flash_attention"])
+            check_ssd_routes("Zamba2 prefill", "wgmma", want["ssd"])
             got["matmul_routes"] = dict(matmul.launches_by_route)
             got["flash_attention_routes"] = dict(flash_attention.launches_by_route)
+            got["ssd_routes"] = dict(ssd.launches_by_route)
         plain16 = api.prefill_logits(params, cfg, batch, use_kernel=False)
         err16 = normalised_err(logits, plain16)
         blocks16, chain16 = hybrid_block_errors(params, cfg, tokens, torch.bfloat16, logits,
@@ -1020,6 +1145,7 @@ def phase_h(gen):
         reset_counts()
         out32 = api.prefill_logits(params32, cfg, batch, compute_dtype=torch.float32)
         check_flash_routes("Zamba2 fp32 prefill", "simt", want["flash_attention"])
+        check_ssd_routes("Zamba2 fp32 prefill", "simt", want["ssd"])
         plain32 = api.prefill_logits(params32, cfg, batch, compute_dtype=torch.float32,
                                      use_kernel=False)
         err32 = normalised_err(out32, plain32)
@@ -1223,8 +1349,7 @@ def matmul_floors(rows, hybrid_rows) -> None:
 def flash_floor(rows, hybrid_rows) -> None:
     """The redesigned flash attention against SDPA in this run, bf16: the sum
     over one prefill of back-to-back calls at most FLASH_FLOORS[arch] x
-    SDPA's. RMSNorm's single-call and back-to-back sums are printed beside
-    F.rms_norm's (not gated)."""
+    SDPA's."""
     for arch, by in ((LM_ARCH, rows), (HYBRID_ARCH, hybrid_rows)):
         fl = lm_summary(by["flash_attention"][torch.bfloat16], "prefill")
         ratio = fl["b2b_ms"] / fl["b2b_library_ms"]
@@ -1232,14 +1357,39 @@ def flash_floor(rows, hybrid_rows) -> None:
               f"SDPA {fl['library_ms']:.3f} ms; back to back {fl['b2b_ms']:.3f} ms against "
               f"{fl['b2b_library_ms']:.3f} ms ({ratio:.2f}x; bound {fl['bound_ms']:.3f} ms "
               f"({fl['bound_by']}), {fl['bound_ms'] / fl['b2b_ms']:.1%} of it)")
-        for per in ("prefill", "decode tick"):
-            rm = lm_summary(by["rmsnorm"][torch.bfloat16], per)
-            print(f"rmsnorm {arch} bf16 {per}: {rm['ms']:.3f} ms of single calls against "
-                  f"F.rms_norm {rm['library_ms']:.3f} ms; back to back {rm['b2b_ms']:.3f} ms "
-                  f"against {rm['b2b_library_ms']:.3f} ms; bound {rm['bound_ms']:.3f} ms")
         check(ratio <= FLASH_FLOORS[arch],
               f"{arch}: bf16 flash attention at {ratio:.2f}x SDPA back to back "
               f"(floor {FLASH_FLOORS[arch]}x)")
+
+
+def rmsnorm_ssd_floors(rows, hybrid_rows) -> None:
+    """The redesigned RMSNorm against F.rms_norm in this run, bf16: the sum
+    over one prefill of back-to-back calls at most RMS_FLOOR x F.rms_norm's
+    on each LM (the decode tick's and the single-call sums printed); the bf16
+    SSD of Zamba2's prefill back to back at most SSD_BOUND_FLOOR x its
+    bytes bound."""
+    ratios = {}
+    for arch, by in ((LM_ARCH, rows), (HYBRID_ARCH, hybrid_rows)):
+        for per in ("prefill", "decode tick"):
+            rm = lm_summary(by["rmsnorm"][torch.bfloat16], per)
+            ratio = rm["b2b_ms"] / rm["b2b_library_ms"]
+            print(f"rmsnorm {arch} bf16 {per}: {rm['ms']:.3f} ms of single calls against "
+                  f"F.rms_norm {rm['library_ms']:.3f} ms; back to back {rm['b2b_ms']:.3f} ms "
+                  f"against {rm['b2b_library_ms']:.3f} ms ({ratio:.2f}x); bound "
+                  f"{rm['bound_ms']:.3f} ms, {rm['bound_ms'] / rm['b2b_ms']:.1%} of it back to "
+                  f"back")
+            if per == "prefill":
+                ratios[arch] = ratio
+    row = hybrid_rows["ssd"][torch.bfloat16][0]
+    ssd_ratio = row["b2b_ms"] / row["bound_ms"]
+    print(f"ssd {HYBRID_ARCH} bf16 prefill shape: {row['b2b_ms']:.4f} ms a call back to back, "
+          f"{row['ms']:.4f} single; bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+          f"{ssd_ratio:.2f}x it; x{row['count']} per prefill: {row['b2b_ms'] * row['count']:.3f} "
+          f"ms back to back")
+    check(all(r <= RMS_FLOOR for r in ratios.values()),
+          f"bf16 RMSNorm back to back at {ratios} x F.rms_norm's (floor {RMS_FLOOR}x)")
+    check(ssd_ratio <= SSD_BOUND_FLOOR,
+          f"bf16 SSD back to back at {ssd_ratio:.2f}x its bound (floor {SSD_BOUND_FLOOR}x)")
 
 
 def lm_entries(rows, launches, serving, hybrid_rows, hybrid_launches, hybrid_serving) -> list:
@@ -1256,8 +1406,8 @@ def lm_entries(rows, launches, serving, hybrid_rows, hybrid_launches, hybrid_ser
         if name == "matmul":
             out["launches_by_route"] = prefill["matmul_routes"]
             out["serving_launches_by_route"] = serve["matmul_routes"]
-        if name == "flash_attention":
-            out["launches_by_route"] = prefill["flash_attention_routes"]
+        if name in ("flash_attention", "ssd"):
+            out["launches_by_route"] = prefill[f"{name}_routes"]
         return out
 
     entries = []
@@ -1318,6 +1468,7 @@ def main() -> int:
     conv_floor(rows)
     matmul_floors(lm_rows, hybrid_rows)
     flash_floor(lm_rows, hybrid_rows)
+    rmsnorm_ssd_floors(lm_rows, hybrid_rows)
     entry = {"name": "conv2d", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
              "dtype": "float32", **launches[torch.float32],
              **vgg_forward_summary(rows[torch.float32]),

@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the port's tensor-core kernels (the
-// matmul's, the conv's and the flash attention's wgmma routes), in inline
-// PTX for sm_90a: mbarriers, TMA tile loads (2-D and 4-D), the m64n128k16
-// and m64n64k16 bf16 wgmmas (A from shared memory or from registers) with
-// their shared-memory descriptors; and, on the host, the tensor-map encoders.
+// matmul's, the conv's, the flash attention's and the SSD's wgmma routes),
+// in inline PTX for sm_90a: mbarriers, TMA tile loads (2-D and 4-D), the
+// m64n128k16 and m64n64k16 bf16 wgmmas (A from shared memory or from
+// registers) with their shared-memory descriptors, the proxy fence and a
+// named barrier; and, on the host, the tensor-map encoders.
 // kernels/_build.py passes this directory to nvcc with -I and hashes it into
 // every kernel's cache key.
 #pragma once
@@ -82,6 +83,18 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// Orders this thread's generic-proxy writes to shared memory before later
+// async-proxy accesses of it (a wgmma reading a tile the threads wrote, a
+// TMA load overwriting it); a barrier among the writers follows it.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Barrier `id` (1-15; 0 is __syncthreads) among `count` threads, whole warps.
+__device__ __forceinline__ void named_sync(uint32_t id, uint32_t count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
 // ---- wgmma -----------------------------------------------------------------
 
 // Shared-memory matrix descriptor of a tile written by TMA with 128-byte
@@ -153,13 +166,15 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
-// d (64 x 64, fp32) (+)= A (64 x 16, K-major) @ B (16 x 64): the same
-// product on one 64-wide atom of B. B is MN-major (N contiguous: transpose
-// bit set, TRANS_B = 1, the conv's weights) or K-major (each of its 64 rows
-// of N holds K contiguous, as A's rows do: TRANS_B = 0, the flash kernel's
-// K tile); a K-major B takes A's descriptor form. scale_d = 0 overwrites d
-// instead of adding to it.
-template <int TRANS_B = 1>
+// d (64 x 64, fp32) (+)= A (64 x 16) @ B (16 x 64): the same product on one
+// 64-wide atom of B. B is MN-major (N contiguous: transpose bit set,
+// TRANS_B = 1, the conv's weights) or K-major (each of its 64 rows of N
+// holds K contiguous, as A's rows do: TRANS_B = 0, the flash kernel's K
+// tile); a K-major B takes A's descriptor form. A is K-major (TRANS_A = 0)
+// or MN-major (TRANS_A = 1: its 64 rows of M contiguous along each k, the
+// SSD's x tile read as x^T), which takes the MN-major B's descriptor form.
+// scale_d = 0 overwrites d instead of adding to it.
+template <int TRANS_B = 1, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a,
                                                 uint64_t desc_b, int scale_d = 1) {
   asm volatile(
@@ -170,7 +185,7 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a,
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, %35;\n\t}"
+      "}, %32, %33, p, 1, 1, %36, %35;\n\t}"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -179,7 +194,7 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 // d (64 x N, fp32) += A (64 x 16, bf16 in registers) @ B (16 x N, bf16 in

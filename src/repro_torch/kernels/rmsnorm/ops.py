@@ -2,18 +2,18 @@
 
 The counterpart of ``repro/kernels/rmsnorm/ops.py::rmsnorm``: it takes the
 model-native (..., D) activations. A CUDA tensor launches the CUDA kernel
-(or raises); a CPU tensor takes the plain version ``rmsnorm_ref``.
-``rmsnorm.launches`` counts kernel launches.
+(or raises) as ``rmsnorm.plan_for`` cuts the rows; a CPU tensor takes the
+plain version ``rmsnorm_ref``. ``rmsnorm.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
 import torch
 
 from .ref import rmsnorm_ref
-from .rmsnorm import DTYPE_CODES, rmsnorm_rows
+from .rmsnorm import DTYPE_CODES, plan_for, rmsnorm_rows
 
-_MAX_D = 232448 // 4  # one fp32 row in a block's shared memory
-_MAX_ROWS = 2**31 - 1  # CUDA's limit on grid x
+_MAX_D = 232448 // 4  # one fp32 row in a block's shared memory (the shared route)
+_MAX_ROWS = 2**31 - 1  # CUDA's limit on grid x (the shared route's one block a row)
 
 
 def _check(x, scale) -> None:
@@ -42,7 +42,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torch
         return rmsnorm_ref(x, scale, eps)
     out = torch.empty_like(x)
     d = x.shape[-1]
-    rmsnorm_rows(x.view(-1, d), scale, out.view(-1, d), eps)
+    rmsnorm_rows(x.view(-1, d), scale, out.view(-1, d), eps, plan_for(x, scale, out))
     rmsnorm.launches += 1
     return out
 

@@ -1,4 +1,4 @@
-// Mamba2 SSD chunked scan for Hopper.
+// Mamba2 SSD chunked scan for Hopper (sm_90a).
 //
 // Replaces the TPU kernel repro/kernels/ssd/ssd.py::ssd_scan (wrapper
 // repro/kernels/ssd/ops.py::ssd). For x (B, S, H, P), dt (B, S, H) fp32,
@@ -10,53 +10,101 @@
 //   y    = ((C B^T) o L) xdt + exp(dacum) o (C state^T),
 //          L[i, j] = exp(dacum_i - dacum_j) for j <= i, 0 above the diagonal
 //   state <- exp(da_tot) state + xdt^T (B o exp(da_tot - dacum))
-// with the (P, N) state starting at 0. Every product, sum and decay is
-// fp32, C B^T included (as in the Pallas kernel and in the compiled
-// ssd_chunked, where XLA keeps that product in fp32); y is cast to x's
-// type (fp32 or bf16).
+// with the (P, N) state starting at 0; y is cast to x's type.
 //
 // What bounds it on the H100. Zamba2-2.7B's prefill at batch 4 x 512: x
 // (4, 512, 80, 64) bf16, b and c (4, 512, 64), chunk 256. Per (batch, head,
 // chunk) the work on the causal triangle is Q(Q + 1)(N + P) + 4QPN = 12.6
 // MFLOP, 8.07 GFLOP per call, on 43 MB in bf16 (x and y dominate): 187
 // operations per byte, below the bf16 ridge (295), so in bf16 the bytes
-// bound it (12.9 us) and in fp32 the CUDA-core rate does (121 us at 67
-// TFLOP/s). This kernel runs on the CUDA cores in fp32, so its ceiling is
-// the fp32 rate in both types.
+// bound it (12.9 us; 8.2 us by the tensor cores at 989 TFLOP/s) and in
+// fp32 the CUDA-core rate does (121 us at 67 TFLOP/s).
 //
-// What the design does about it.
-//  * One block of 256 threads per (batch, head) walks that head's chunks in
-//    order; the (P, N) fp32 state (16 KB at 64 x 64) stays in shared memory
-//    from chunk to chunk and never goes to device memory, as the Pallas
-//    kernel keeps it in VMEM. At batch 4 that is 320 blocks, two per SM.
-//  * B and C are read in their (B, S, N) layout for every head, by index:
-//    no head replication (the Pallas wrapper's repeat is 84 MB of extra
-//    traffic per layer at full width) and no transposes of x or y. The 80
-//    heads of one batch row read the same B and C rows, which L2 serves.
-//  * A whole chunk does not fit: at Q = 256 the (Q, Q) matrix (C B^T) o L
-//    alone is 256 KB in fp32. The chunk is cut into row tiles of 64; for
-//    each output tile only the column tiles at or below the diagonal are
-//    computed (L is 0 above it), one 64 x 64 tile of (C B^T) o L at a
-//    time in shared memory, then multiplied into the tile's fp32 output
-//    registers. The state update then walks the chunk's tiles once more.
-//  * L is masked before the exponent: above the diagonal dacum_i - dacum_j
-//    is positive and could overflow, and inf * 0 would be NaN.
-//  * Ragged chunks: any q up to the shared-memory limit works, whole
-//    multiples of 64 or not; rows past q are loaded as 0 and not written.
-//  * Each thread owns 4 rows x P/16 columns of the output tile and 4 x 4
-//    entries of the (C B^T) o L tile in registers; shared-memory strides
-//    are padded (N + 1, 65) so the inner loops are free of bank conflicts.
-//    Tensor cores (wgmma on bf16) and TMA are later work.
+// What the design does about it: two routes, chosen by the Python plan
+// (ssd.py) and checked here.
 //
-// The kernel allocates nothing, launches on the stream it is given and
-// returns cudaGetLastError(); the Python wrapper raises when that is not 0.
+//  * wgmma (bf16; P and N multiples of 8 up to 64; chunks of q <= MAX_Q
+//    rows; x, b, c, y at 16-byte-aligned addresses: what TMA takes). Two
+//    kernels, one ctypes call, in the split of Mamba2's own kernels:
+//     - ssd_states: one block per (h, b), 320 at Zamba2's shape (one
+//       wave: 132 SMs hold two or three each), walks the chunks in order
+//       and keeps the fp32 master state in the wgmma accumulator; per
+//       chunk it adds x^T (B o dt o exp(da_tot - dacum)) on m64n64k16:
+//       A = x^T straight from the TMA'd x tile (the transpose-A bit), B =
+//       the chunk's B rows scaled in place in shared memory and rounded to
+//       bf16. After each chunk but the last it writes the state entering
+//       the next one, rounded to bf16, to a scratch of (B, NC - 1, H, 64,
+//       64) (5.2 MB at Zamba2's shape); the last chunk's update is never
+//       read, so it is not computed (at 2 chunks a sequence, one chunk).
+//     - ssd_outputs: one block per (h, b, chunk, 64-row tile), 2560 at
+//       Zamba2's shape, the tiles with the most work launched first (4.8
+//       waves of 4 blocks per SM; the last blocks are the light ones).
+//       One producer warp brings by TMA the C tile, the state copy and a
+//       2-stage ring of B and x tiles of 64 rows for the column tiles at or
+//       below the diagonal only (those above are 0 in L); one consumer
+//       warpgroup computes
+//         y = exp(dacum_i) (C_i state^T)        m64n64k16, state K-major
+//         S = C_i B_j^T                         m64n64k16, B K-major: C and
+//             B as stored, N as the depth; products of bf16 are exact in
+//             fp32, so S is the reference's fp32 C B^T up to sum order
+//         G = S exp(dacum_i - dacum_j) dt_j     on the fragment, fp32. On
+//             the diagonal tile it is masked before the exponent (j > i,
+//             rows past the chunk), so nothing overflows into inf * 0;
+//             below it, it is S u_i (w_j dt_j) with u_i = exp(dacum_i - m)
+//             and w_j = exp(m - dacum_j) about m, the column tile's last
+//             dacum: both at most 1, so neither overflows, and the
+//             exponent a G element cost (the kernel's largest share, found
+//             by tools/ssd_knockout.py) becomes two multiplies
+//         y += G x_j                            m64n64k16 RS: G packed to
+//             bf16 in registers as the A fragment (the flash kernel's P),
+//             x_j straight from TMA as an MN-major B: dt folded into G's
+//             columns instead of an x * dt pass
+//       then stages the tile in bf16 through the C tile's buffer and
+//       writes it as 16-byte pieces, 8 lanes a 128-byte row; rows past the
+//       chunk and columns past P masked.
+//    P and N below 64 are zero-filled by TMA to one 64-wide atom; a tile
+//    that runs past a ragged chunk (q not a multiple of 64) reads the next
+//    chunk's rows, which the masks above (G, the B rows of the state
+//    update) multiply by 0, so inputs must be finite there; rows past S
+//    are zero-filled.
+//    Rounding points against ssd_ref (which keeps x * dt, C B^T, L and
+//    every product in fp32): G in bf16, the B rows of the state update
+//    (B o dt o exp(da_tot - dacum)) in bf16, the state copy read by
+//    C state^T in bf16; exp taken as 2^x of log2(e)-scaled dacum by
+//    ex2.approx.ftz (results below 2^-126 are 0), below the diagonal as the
+//    product u_i w_j; every sum and the master state stay fp32. Tolerance
+//    2e-2 normalised (tests/test_torch_ssd.py, which walks this tiling in
+//    plain torch).
+//  * simt (fp32, and shapes the wgmma route does not take): the CUDA-core
+//    kernel of the port's first version. One block of 256 threads per
+//    (batch, head) walks that head's chunks in order with the (P, N) fp32
+//    state in shared memory; 64-row tiles at and below the diagonal, one
+//    64 x 64 tile of (C B^T) o L at a time in shared memory; B and C read
+//    by index (no head replication), L masked before the exponent; any q
+//    up to the shared-memory limit; P, N <= 64. Every product and sum is
+//    fp32, held to 1e-5.
+//
+// The kernels allocate nothing (the wrapper passes the state scratch) and
+// launch on the stream they are given; the entry point returns
+// cudaGetLastError() (or the error of a refused argument) and the Python
+// wrapper raises when that is not 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstddef>
+#include <cstdint>
+
+#include "hopper.cuh"  // kernels/include: PTX helpers, tensor-map encoders
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// simt route: CUDA cores, fp32 arithmetic
+// ---------------------------------------------------------------------------
+
+namespace simt {
 
 constexpr int TQ = 64;        // rows of a tile
 constexpr int THREADS = 256;  // 16 x 16
@@ -346,28 +394,473 @@ cudaError_t dispatch(const void* x, const float* dt, const float* a, const void*
   return cudaErrorInvalidValue;
 }
 
+}  // namespace simt
+
+// ---------------------------------------------------------------------------
+// wgmma route: TMA + mbarrier ring + tensor cores, bf16
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+constexpr int TILE = 64;                            // rows of a tile; P and N in one atom
+constexpr uint32_t ROW_BYTES = 128;                 // one swizzle row: 64 bf16
+constexpr uint32_t TILE_BYTES = TILE * ROW_BYTES;   // 8 KB
+constexpr uint32_t KSTEP_BYTES = 16 * ROW_BYTES;    // 16 k rows of an MN-major tile
+constexpr uint32_t GROUP_BYTES = 1024;              // descriptor stride of 8 rows
+constexpr int MAX_Q = 2048;                         // chunk rows (dt, dacum in shared memory)
+constexpr int STAGES = 2;                           // B and x tiles in flight
+constexpr int CONSUMERS = 128;                      // one warpgroup
+constexpr int THREADS = CONSUMERS + 32;             // and one producer warp
+constexpr uint32_t CONSUMER_BAR = 1;                // named barrier of the warpgroup
+constexpr int STATE_TILES = 2 * STAGES;             // ssd_states: x and B per stage
+constexpr int OUT_TILES = 2 + 2 * STAGES;           // ssd_outputs: C, the state copy, B and x
+constexpr float LOG2E = 1.4426950408889634f;
+
+struct Geo {
+  int s, h, p, n, q, nc, nt;  // nc chunks of q rows; nt 64-row tiles a chunk
+};
+
+// Tiles (1024-byte aligned), two float arrays of q and the scan's warp
+// totals, then `bars` mbarriers.
+constexpr int PART = CONSUMERS / 32;
+size_t smem_bytes(int tiles, int q, int bars) {
+  return 1024 + (size_t)tiles * TILE_BYTES + sizeof(float) * (2 * (size_t)q + PART) +
+         8 * (size_t)bars;
+}
+
+// 2^x, subnormal results flushed to 0 (the decays here are at most 1).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The consumer warpgroup: dts[i] = dt and dac[i] = unit * (the inclusive
+// cumulative sum of dt * a) over rows [0, rows) of the chunk that starts at
+// row t0 of dt_bh (stride h_stride). Each thread sums a segment of
+// consecutive rows in order (its loads issued together), the segments are
+// joined by a shuffle scan and the 4 warp totals in `part`; it ends with a
+// barrier of the warpgroup, so every thread may read any row after it.
+__device__ void chunk_scan(const float* __restrict__ dt_bh, int h_stride, int t0, int rows,
+                           float ah, float unit, float* dts, float* dac, float* part, int tid) {
+  const int per = (rows + CONSUMERS - 1) / CONSUMERS;
+  const int lo = min(tid * per, rows), hi = min(lo + per, rows);
+  const int lane = tid % 32, warp = tid / 32;
+  float run = 0.f;
+#pragma unroll 4
+  for (int i = lo; i < hi; ++i) {
+    const float d = dt_bh[(size_t)(t0 + i) * h_stride];
+    dts[i] = d;
+    run += d * ah;
+  }
+  float incl = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float v = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += v;
+  }
+  if (lane == 31) part[warp] = incl;
+  hopper::named_sync(CONSUMER_BAR, CONSUMERS);
+  float acc = incl - run;  // the rows before this thread's segment
+  for (int w = 0; w < warp; ++w) acc += part[w];
+  for (int i = lo; i < hi; ++i) {
+    acc += dts[i] * ah;
+    dac[i] = acc * unit;
+  }
+  hopper::named_sync(CONSUMER_BAR, CONSUMERS);
+}
+
+// The states entering chunks 1 .. NC - 1 of one (head, batch), in bf16.
+__global__ void __launch_bounds__(THREADS, 1)
+ssd_states(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_b,
+           const float* __restrict__ dt, const float* __restrict__ a,
+           __nv_bfloat16* __restrict__ states, const Geo g) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  const uint32_t tiles = (base + 1023) & ~1023u;
+  uint8_t* tiles_p = smem_raw + (tiles - base);
+  float* ws = reinterpret_cast<float*>(tiles_p + STATE_TILES * TILE_BYTES);  // [q] row weights
+  float* dac = ws + g.q;                                                      // [q] dacum
+  float* part = dac + g.q;                                                    // [PART]
+  const uint32_t full0 = tiles + STATE_TILES * TILE_BYTES + 4 * (2 * g.q + PART);
+  const uint32_t empty0 = full0 + 8 * STAGES;
+  const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const int chunks = g.nc - 1;  // the last chunk's update is never read
+
+  if (tid == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full0 + 8 * st, 1);
+      mbar_init(empty0 + 8 * st, CONSUMERS);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {  // the producer warp; one thread issues
+    if (tid == CONSUMERS) {
+      int it = 0;
+      for (int c = 0; c < chunks; ++c)
+        for (int t = 0; t < g.nt; ++t, ++it) {
+          const int st = it % STAGES;
+          mbar_wait(empty0 + 8 * st, ((it / STAGES) & 1) ^ 1);
+          const uint32_t full = full0 + 8 * st, xs = tiles + st * 2 * TILE_BYTES;
+          const int row = c * g.q + t * TILE;
+          mbar_arrive_expect_tx(full, 2 * TILE_BYTES);
+          tma_load_4d(xs, &map_x, full, 0, h, row, b);
+          tma_load_2d(xs + TILE_BYTES, &map_b, full, 0, b * g.s + row);
+        }
+    }
+    return;
+  }
+
+  const int warp = tid / 32, lane = tid % 32;
+  const float ah = a[h];
+  const float* dtb = dt + (size_t)b * g.s * g.h + h;
+  float acc[32];  // the (P, N) state: rows p, columns n
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  fence_operands(acc);
+
+  int it = 0;
+  for (int c = 0; c < chunks; ++c) {
+    named_sync(CONSUMER_BAR, CONSUMERS);  // the chunk before is done with ws
+    chunk_scan(dtb, g.h, c * g.q, g.q, ah, 1.f, ws, dac, part, tid);
+    const float tot = dac[g.q - 1];
+    for (int i = tid; i < g.q; i += CONSUMERS) ws[i] *= ex2((tot - dac[i]) * LOG2E);
+    named_sync(CONSUMER_BAR, CONSUMERS);
+    const float keep = ex2(tot * LOG2E);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] *= keep;
+
+    for (int t = 0; t < g.nt; ++t, ++it) {
+      const int st = it % STAGES;
+      const uint32_t xs = tiles + st * 2 * TILE_BYTES, bs = xs + TILE_BYTES;
+      mbar_wait(full0 + 8 * st, (it / STAGES) & 1);
+      // B row j -> B_j dt_j exp(da_tot - dacum_j) in bf16, in place (the
+      // swizzle moves 16-byte pieces within their row only); rows past the
+      // chunk -> 0.
+      uint4* piece = reinterpret_cast<uint4*>(tiles_p + st * 2 * TILE_BYTES + TILE_BYTES);
+      for (int k = tid; k < TILE * 8; k += CONSUMERS) {
+        const int j = t * TILE + k / 8;
+        uint4 v = make_uint4(0, 0, 0, 0);
+        if (j < g.q) {
+          const float w = ws[j];
+          v = piece[k];
+          __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 f = __bfloat1622float2(h2[e]);
+            h2[e] = __floats2bfloat162_rn(f.x * w, f.y * w);
+          }
+        }
+        piece[k] = v;
+      }
+      fence_proxy_async();
+      named_sync(CONSUMER_BAR, CONSUMERS);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // 16 chunk rows a step
+        wgmma_m64n64k16<1, 1>(acc, make_desc(xs + kk * KSTEP_BYTES, TILE_BYTES, GROUP_BYTES),
+                              make_desc(bs + kk * KSTEP_BYTES, TILE_BYTES, GROUP_BYTES));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(acc);
+      mbar_arrive(empty0 + 8 * st);
+    }
+
+    // The state entering chunk c + 1, rounded to bf16, as (P, N) rows of 64.
+    __nv_bfloat16* out = states + (((size_t)b * chunks + c) * g.h + h) * TILE * TILE;
+    const int r0 = 16 * warp + lane / 4, c0 = 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<uint32_t*>(out + (r0 + 8 * hh) * TILE + 8 * j + c0) =
+            pack_bf16(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+  }
+}
+
+// y for one 64-row tile of one chunk of one (head, batch).
+__global__ void __launch_bounds__(THREADS)
+ssd_outputs(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_b,
+            const __grid_constant__ CUtensorMap map_c, const __grid_constant__ CUtensorMap map_st,
+            const float* __restrict__ dt, const float* __restrict__ a,
+            __nv_bfloat16* __restrict__ y, const Geo g) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  const uint32_t tiles = (base + 1023) & ~1023u;
+  uint8_t* tiles_p = smem_raw + (tiles - base);
+  const uint32_t sc = tiles, sst = tiles + TILE_BYTES, ring = tiles + 2 * TILE_BYTES;
+  float* dts = reinterpret_cast<float*>(tiles_p + OUT_TILES * TILE_BYTES);  // [q] dt
+  float* dac = dts + g.q;                                                    // [q] dacum log2(e)
+  float* part = dac + g.q;                                                   // [PART]
+  const uint32_t c_bar = tiles + OUT_TILES * TILE_BYTES + 4 * (2 * g.q + PART);
+  const uint32_t full0 = c_bar + 8, empty0 = full0 + 8 * STAGES;
+  const int h = blockIdx.x % g.h, bc = blockIdx.x / g.h;  // heads fastest: they share C, B
+  const int b = bc / g.nc, c = bc - b * g.nc;
+  const int it = g.nt - 1 - blockIdx.y;  // the tiles with the most column tiles first
+  const int i0 = it * TILE, t0 = c * g.q;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(c_bar, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full0 + 8 * st, 1);
+      mbar_init(empty0 + 8 * st, CONSUMERS);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {  // the producer warp; one thread issues
+    if (tid == CONSUMERS) {
+      mbar_arrive_expect_tx(c_bar, (c > 0 ? 2 : 1) * TILE_BYTES);
+      tma_load_2d(sc, &map_c, c_bar, 0, b * g.s + t0 + i0);
+      if (c > 0) tma_load_2d(sst, &map_st, c_bar, 0, ((b * (g.nc - 1) + c - 1) * g.h + h) * TILE);
+      for (int jt = 0; jt <= it; ++jt) {  // the column tiles at or below the diagonal
+        const int st = jt % STAGES;
+        mbar_wait(empty0 + 8 * st, ((jt / STAGES) & 1) ^ 1);
+        const uint32_t full = full0 + 8 * st, bs = ring + st * 2 * TILE_BYTES;
+        mbar_arrive_expect_tx(full, 2 * TILE_BYTES);
+        tma_load_2d(bs, &map_b, full, 0, b * g.s + t0 + jt * TILE);
+        tma_load_4d(bs + TILE_BYTES, &map_x, full, 0, h, t0 + jt * TILE, b);
+      }
+    }
+    return;
+  }
+
+  chunk_scan(dt + (size_t)b * g.s * g.h + h, g.h, t0, min(i0 + TILE, g.q), a[h], LOG2E, dts,
+             dac, part, tid);
+  // Below the diagonal tile, exp(dacum_i - dacum_j) = u_i w_j about m, the
+  // dacum of the column tile's last row: u_i = 2^(dac_i - m) and w_j =
+  // 2^(m - dac_j) are at most 1 (dacum falls), so neither overflows. Here
+  // dts[j] becomes w_j dt_j for the rows of those tiles (all whole).
+  for (int j = tid; j < i0; j += CONSUMERS) dts[j] *= ex2(dac[j | (TILE - 1)] - dac[j]);
+  named_sync(CONSUMER_BAR, CONSUMERS);
+
+  // Fragment of m64n64: warp w holds rows 16w + lane/4 (+ 8), columns
+  // 8j + 2 (lane % 4) (+ 1) in d[4j + {0, 1}] (+ {2, 3}).
+  const int warp = tid / 32, lane = tid % 32;
+  const int c0 = 2 * (lane % 4);
+  int ri[2];
+  bool rv[2];
+  float dr[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    ri[hh] = i0 + 16 * warp + lane / 4 + 8 * hh;
+    rv[hh] = ri[hh] < g.q;  // rows past a ragged chunk are not the chunk's
+    dr[hh] = rv[hh] ? dac[ri[hh]] : 0.f;
+  }
+  float acc[32], s[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = s[i] = 0.f;
+  fence_operands(acc);
+  fence_operands(s);
+  mbar_wait(c_bar, 0);
+
+  if (c > 0) {  // y = exp(dacum_i) (C_i state^T)
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n64k16<0>(acc, make_desc(sc + kk * 32, 16, GROUP_BYTES),
+                         make_desc(sst + kk * 32, 16, GROUP_BYTES), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(acc);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float decay = rv[hh] ? ex2(dr[hh]) : 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        acc[4 * j + 2 * hh] *= decay;
+        acc[4 * j + 2 * hh + 1] *= decay;
+      }
+    }
+  }
+
+  for (int jt = 0; jt <= it; ++jt) {
+    const int st = jt % STAGES;
+    const uint32_t bs = ring + st * 2 * TILE_BYTES, xs = bs + TILE_BYTES;
+    mbar_wait(full0 + 8 * st, (jt / STAGES) & 1);
+    wgmma_fence();  // S = C_i B_j^T
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n64k16<0>(s, make_desc(sc + kk * 32, 16, GROUP_BYTES),
+                         make_desc(bs + kk * 32, 16, GROUP_BYTES), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(s);
+
+    // G = S exp(dacum_i - dacum_j) dt_j. On the diagonal tile it is taken
+    // whole, masked before the exponent (j > i, rows past the chunk give 0);
+    // below it as S u_i (w_j dt_j).
+    if (jt == it) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int bb = 0; bb < 2; ++bb) {
+          const int col = i0 + 8 * j + c0 + bb;
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            float& v = s[4 * j + 2 * hh + bb];
+            v = rv[hh] && col <= ri[hh] ? v * ex2(dr[hh] - dac[col]) * dts[col] : 0.f;
+          }
+        }
+    } else {
+      const float m = dac[jt * TILE + TILE - 1];
+      float u[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) u[hh] = rv[hh] ? ex2(dr[hh] - m) : 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int bb = 0; bb < 2; ++bb) {
+          const float w = dts[jt * TILE + 8 * j + c0 + bb];
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) s[4 * j + 2 * hh + bb] *= u[hh] * w;
+        }
+    }
+    uint32_t ga[4][4];  // G in bf16 as the A fragments of the 4 steps of 16 rows of x
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) ga[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+    fence_operands(acc);
+    wgmma_fence();  // y += G x_j
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n64k16_rs(acc, ga[kk], make_desc(xs + kk * KSTEP_BYTES, TILE_BYTES, GROUP_BYTES));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(acc);
+    mbar_arrive(empty0 + 8 * st);  // this thread is done with the stage
+  }
+
+  // The tile in bf16 through the C tile's buffer (its last reader, the
+  // last S, has completed): each warp writes its 16 rows there, swizzled
+  // by 16-byte pieces so that the 8 rows of a store hit 8 bank groups, then
+  // copies them out as 16-byte pieces, 8 lanes a 128-byte row. Rows past
+  // the chunk and pieces past P are not written.
+  uint8_t* stage = tiles_p + 16 * warp * ROW_BYTES;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = lane / 4 + 8 * hh;  // row within the warp's 16
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<uint32_t*>(stage + r * ROW_BYTES + ((j ^ (r % 8)) * 16) + 2 * c0) =
+          pack_bf16(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int r = 4 * k + lane / 8, piece = lane % 8;  // 16 rows x 8 pieces over 4 steps
+    const int row = i0 + 16 * warp + r;
+    if (row < g.q && piece * 8 < g.p)
+      *reinterpret_cast<uint4*>(y + (((size_t)b * g.s + t0 + row) * g.h + h) * g.p + piece * 8) =
+          *reinterpret_cast<const uint4*>(stage + r * ROW_BYTES + ((piece ^ (r % 8)) * 16));
+  }
+}
+
+// Above 48 KB of dynamic shared memory a kernel must opt in, once per device.
+template <typename K>
+cudaError_t opt_in(K kernel, size_t bytes, int device, std::atomic<unsigned long long>& ready) {
+  const unsigned long long bit = 1ull << (device & 63);
+  if (ready.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess) ready.fetch_or(bit);
+  return e;
+}
+
+cudaError_t launch(const void* x, const float* dt, const float* a, const void* b, const void* c,
+                   void* y, void* states, int batch, const Geo& g, int device,
+                   cudaStream_t stream) {
+  const bool chained = g.nc > 1;
+  CUtensorMap map_x, map_b, map_c, map_st;
+  if (!hopper::encode_4d(&map_x, x, batch, g.s, g.h, g.p, 1, TILE) ||
+      !hopper::encode_2d(&map_b, b, batch * g.s, g.n, TILE) ||
+      !hopper::encode_2d(&map_c, c, batch * g.s, g.n, TILE))
+    return cudaErrorInvalidValue;
+  if (chained) {
+    if (!hopper::encode_2d(&map_st, states, batch * (g.nc - 1) * g.h * TILE, TILE, TILE))
+      return cudaErrorInvalidValue;
+  } else {
+    map_st = map_c;  // not read: chunk 0 starts from the zero state
+  }
+  static std::atomic<unsigned long long> ready_states{0}, ready_outputs{0};
+  cudaError_t e = opt_in(ssd_states, smem_bytes(STATE_TILES, MAX_Q, 2 * STAGES), device,
+                         ready_states);
+  if (e == cudaSuccess)
+    e = opt_in(ssd_outputs, smem_bytes(OUT_TILES, MAX_Q, 1 + 2 * STAGES), device,
+               ready_outputs);
+  if (e != cudaSuccess) return e;
+  if (chained) {
+    ssd_states<<<dim3(g.h, batch), THREADS, smem_bytes(STATE_TILES, g.q, 2 * STAGES),
+                 stream>>>(map_x, map_b, dt, a, static_cast<__nv_bfloat16*>(states), g);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  ssd_outputs<<<dim3(g.h * batch * g.nc, g.nt), THREADS,
+                smem_bytes(OUT_TILES, g.q, 1 + 2 * STAGES), stream>>>(
+      map_x, map_b, map_c, map_st, dt, a, static_cast<__nv_bfloat16*>(y), g);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
+cudaError_t on_device(int device) {
+  int current = -1;
+  cudaError_t e = cudaGetDevice(&current);
+  if (e == cudaSuccess && current != device) e = cudaSetDevice(device);
+  return e;
+}
+
 }  // namespace
 
 extern "C" {
 
 // x, y (B, S, H, P); dt (B, S, H) fp32; a (H,) fp32; b, c (B, S, N); all
-// contiguous, x, b, c and y of one type (0 = float32, 1 = bfloat16). q is
-// the chunk length and divides S. Returns a cudaError_t (0 on success).
+// contiguous, x, b, c and y of one type (dtype 0 = float32, 1 = bfloat16).
+// q is the chunk length and divides S. route: 0 = simt, 1 = wgmma (bf16, P
+// and N multiples of 8 in [8, 64], q <= 2048, x, b, c 16-byte aligned;
+// `states` a bf16 scratch of B (S / q - 1) H 64 64 values, 16-byte aligned,
+// when S / q > 1). Returns a cudaError_t (0 on success).
 int repro_ssd(const void* x, const void* dt, const void* a, const void* b, const void* c,
-              void* y, int batch, int s, int h, int p, int n, int q, int dtype, int device,
-              void* stream) {
-  cudaError_t e = cudaSetDevice(device);
+              void* y, void* states, int batch, int s, int h, int p, int n, int q, int dtype,
+              int route, int device, void* stream) {
+  cudaError_t e = on_device(device);
   if (e != cudaSuccess) return (int)e;
   if (q < 1 || s % q != 0) return (int)cudaErrorInvalidValue;
-  const Shape sh{s, h, p, n, q};
   const float* dtf = static_cast<const float*>(dt);
   const float* af = static_cast<const float*>(a);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return (int)dispatch<float>(x, dtf, af, b, c, y, batch, sh, st);
-    case 1: return (int)dispatch<__nv_bfloat16>(x, dtf, af, b, c, y, batch, sh, st);
-    default: return (int)cudaErrorInvalidValue;
+  if (route == 0) {
+    const simt::Shape sh{s, h, p, n, q};
+    switch (dtype) {
+      case 0: return (int)simt::dispatch<float>(x, dtf, af, b, c, y, batch, sh, st);
+      case 1: return (int)simt::dispatch<__nv_bfloat16>(x, dtf, af, b, c, y, batch, sh, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
+  const int nc = s / q, nt = (q + wg::TILE - 1) / wg::TILE;
+  const long long rows = (long long)batch * s;
+  const long long state_rows = (long long)batch * (nc - 1) * h * wg::TILE;
+  if (route != 1 || dtype != 1 || p % 8 || n % 8 || p < 8 || n < 8 || p > 64 || n > 64 ||
+      q > wg::MAX_Q || ((uintptr_t)x | (uintptr_t)b | (uintptr_t)c | (uintptr_t)y) % 16 ||
+      (nc > 1 && (states == nullptr || (uintptr_t)states % 16)) ||
+      batch > 65535 || nt > 65535 || (long long)batch * nc * h > 0x7fffffffLL ||
+      rows > 0x7fffffffLL ||
+      state_rows > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const wg::Geo g{s, h, p, n, q, nc, nt};
+  return (int)wg::launch(x, dtf, af, b, c, y, states, batch, g, device, st);
 }
 
 const char* repro_cuda_error_string(int err) {

@@ -6,16 +6,18 @@ contract of ``ssd_chunked``: x (B, S, H, P), dt (B, S, H), a_log (H,), b, c
 ``q = min(chunk, S)`` rows, q dividing S. The decay terms the Pallas
 wrapper precomputes (``dt * A`` and its cumulative sums, ``x * dt``) are
 taken inside the kernel; only ``a = -exp(a_log)`` (H numbers) is taken
-here. A CUDA tensor launches the CUDA kernel (or raises); a CPU tensor
-takes the plain version ``ssd_ref``. ``ssd.launches`` counts kernel
-launches.
+here. A CUDA tensor launches the CUDA kernels (or raises) on the route
+``ssd.plan_for`` picks; a CPU tensor takes the plain version ``ssd_ref``.
+``ssd.launches`` counts kernel launches, one per call (the wgmma route's
+two kernels are one ctypes call), and ``ssd.launches_by_route`` splits
+them by route (``wgmma``, ``simt``).
 """
 from __future__ import annotations
 
 import torch
 
 from .ref import ssd_ref
-from .ssd import DTYPE_CODES, ssd_scan
+from .ssd import DTYPE_CODES, ROUTES, plan_for, ssd_scan, state_scratch
 
 _MAX_PN = 64         # the kernel's widest head (P) and state (N), Zamba2's
 # Chunk rows: at P = N = 64 a block needs 4 * (20736 + 2q) bytes of shared
@@ -68,9 +70,13 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor,
         return ssd_ref(x, dt, a_log, b, c, chunk)
     a = -torch.exp(a_log.float())
     out = torch.empty_like(x)
-    ssd_scan(x, dt.float(), a, b, c, out, q)
+    route = plan_for(x, b, c, q)
+    states = state_scratch(x, q) if route == "wgmma" else None
+    ssd_scan(x, dt.float(), a, b, c, out, q, route, states)
     ssd.launches += 1
+    ssd.launches_by_route[route] += 1
     return out
 
 
 ssd.launches = 0
+ssd.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -1,12 +1,14 @@
 """The port's RMSNorm (repro_torch.kernels.rmsnorm) against the JAX
 package's Pallas kernel (interpret mode) and ``layers.rms_norm``, on the
-same numpy inputs. On the CPU the port's wrapper takes its plain version;
-the CUDA kernel itself is checked by the ``cuda``-marked case."""
+same numpy inputs. On the CPU the port's wrapper takes its plain version
+and the plan that cuts rows for the kernel is checked; the CUDA kernel
+itself is checked by the ``cuda``-marked cases."""
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels.rmsnorm import rmsnorm as launcher  # noqa: E402
 from repro_torch.kernels.rmsnorm.ops import rmsnorm  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
 from repro_torch.models.layers import rms_norm  # noqa: E402
@@ -75,6 +77,54 @@ def test_rms_norm_routes():
     assert rmsnorm.launches == before
 
 
+# Widths of the register route's plan: odd (scalar loads), narrow (several
+# rows a warp), the LMs' (StarCoder2-3B 3072, Zamba2-2.7B 2560 and 5120), and
+# the widest each dtype holds in registers, then past it (the shared route).
+PLAN_WIDTHS = [1, 3, 7, 8, 48, 64, 100, 1000, 2560, 3072, 5120, 8192, 8196, 16384, 16392, 20000]
+
+
+@pytest.mark.parametrize("d", PLAN_WIDTHS)
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_rmsnorm_plan_covers_each_value_once(d, name):
+    """Thread t of a row holds vectors k * tpr + t (k < vpt) of 16 bytes: the
+    plan covers the row, every value once, within the kernel's shapes (vpt in
+    1, 2, 4; tpr a power of two up to 32 or whole warps; at most 512 threads
+    a block, and 256 for blocks of several rows)."""
+    dtype = DTYPES[name]
+    v = 16 // dtype.itemsize
+    p = launcher.plan(d, dtype, True)
+    if -(-d // v) > launcher.MAX_TPR * launcher.MAX_VPT:
+        assert p.route == "shared"
+        return
+    assert p.route == "registers" and p.vec == (d % v == 0)
+    assert p.vpt in (1, 2, 4)
+    assert (p.tpr <= 32 and p.tpr & (p.tpr - 1) == 0) or p.tpr % 32 == 0
+    assert p.tpr * p.rows <= launcher.MAX_TPR
+    assert p.rows == max(1, launcher.BLOCK_THREADS // p.tpr)
+    k, t, e = np.meshgrid(np.arange(p.vpt), np.arange(p.tpr), np.arange(v), indexing="ij")
+    held = ((k * p.tpr + t) * v + e).ravel()
+    assert sorted(held[held < d]) == list(range(d))
+    need = -(-(-(-d // v)) // p.tpr)  # ceil(ceil(d / v) / tpr)
+    assert p.vpt == need or (p.vpt, need) == (4, 3)  # the fewest vectors a thread, 3 as 4
+
+
+def test_rmsnorm_plan_lm_widths():
+    """The LMs' widths in bf16 are cut into whole vectors: 96 threads a row at
+    D = 2560 and 3072 (two rows a block), 160 at 5120; unaligned storage
+    keeps the cut and loads by scalars."""
+    plan = launcher.plan
+    assert plan(3072, torch.bfloat16, True) == ("registers", 4, 96, 2, True)
+    assert plan(2560, torch.bfloat16, True) == ("registers", 4, 96, 2, True)
+    assert plan(5120, torch.bfloat16, True) == ("registers", 4, 160, 1, True)
+    assert plan(5120, torch.float32, True) == ("registers", 4, 320, 1, True)
+    assert plan(3072, torch.bfloat16, False) == ("registers", 4, 96, 2, False)
+    x = torch.zeros((3, 3072), dtype=torch.bfloat16)
+    s = torch.zeros(3072, dtype=torch.float32)
+    assert launcher.plan_for(x, s, torch.empty_like(x)).vec
+    shifted = torch.zeros(3 * 3072 + 1, dtype=torch.bfloat16)[1:].view(3, 3072)
+    assert not launcher.plan_for(shifted, s, torch.empty_like(x)).vec
+
+
 @pytest.mark.parametrize("bad", ["scale_shape", "dtype", "device", "noncontiguous", "empty"])
 def test_rmsnorm_rejects(bad):
     x, s = torch.zeros((4, 8)), torch.ones(8)
@@ -111,3 +161,24 @@ def test_rmsnorm_kernel_matches_plain_on_card(shape, name, cuda_device):
     torch.cuda.synchronize()
     assert rmsnorm.launches == before + 1
     torch.testing.assert_close(out.float(), rmsnorm_ref(xt, st).float(), **_tol(name))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 7, 48, 2560, 3072, 5120, 20000])
+@pytest.mark.parametrize("rows", [1, 4, 2048])
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("scale", ["same", "other"])
+def test_rmsnorm_kernel_widths_on_card(d, rows, name, scale, cuda_device):
+    """Every route and cut of the plan (scalar loads at D = 3 and 7, several
+    rows a warp at 48, whole warps at the LMs' widths, the shared route at
+    20000), with the scale in x's dtype or the other one; a row slice that
+    is not 16-byte aligned takes scalar loads."""
+    other = "float32" if name == "bfloat16" else "bfloat16"
+    _, _, xt, st = _inputs((rows + 1, d), name, other if scale == "other" else name)
+    xt, st = xt.to(cuda_device), st.to(cuda_device)
+    for x in (xt[:rows], xt[1:]):  # the second starts D values in: aligned iff D % 8 == 0
+        before = rmsnorm.launches
+        out = rmsnorm(x, st)
+        torch.cuda.synchronize()
+        assert rmsnorm.launches == before + 1
+        torch.testing.assert_close(out.float(), rmsnorm_ref(x, st).float(), **_tol(name))
