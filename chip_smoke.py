@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with a CUDA device and nvcc:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch`` (nvcc, sm_90a,
-one process per source, all started together) and then runs nine phases;
+one process per source, all started together) and then runs twelve phases;
 any failure raises and exits non-zero.
 
   (A) The conv kernel against its plain PyTorch version at every distinct
@@ -111,6 +111,35 @@ any failure raises and exits non-zero.
       the conv and ssm lines of every slot admitted after tick 0 are zero
       before its first tick; ``steps`` and ``utilization`` equal a
       plain-route batcher's.
+  (J) The cross-cell DSE screen (``core/screen.py``): VGG-16 and VGG-19 (no
+      FC, as the campaign builds them) at inputs 64-448 x the four boards x
+      precisions 16 and 8, 96 cells of 4096 seeded candidates within the
+      search box at batch_max 8: the card's float64 output equals the same
+      call on the CPU bit for bit; the median ms a call (CUDA events, with
+      and without the host copies) and candidates/s beside the CPU's.
+  (K) Training at full width: StarCoder2-3B, fp32 master weights from a
+      seeded generator, bf16 compute, remat "full", 3 steps of
+      ``train.steps.build_step``'s train step at 4 x 512 on batches of the
+      port's ``TokenPipeline(seed=0)``: finite losses and grad norms, every
+      parameter leaf changed after step 0, the in-place AdamW update of
+      ``embed`` and ``blocks/attn/wq`` within 1e-6 normalised of the
+      reference formula evaluated out of place on copies, no kernel launched
+      by the steps (training takes the plain route: the kernels have no
+      backward), and the step-0 loss within 2e-2 relative of
+      ``softmax_xent`` over ``api.prefill_logits(use_kernel=True)`` on the
+      bf16 cast of the same weights and tokens (181 / 61 / 30 launches).
+      Then Zamba2-2.7B, 2 steps, the same checks (``embed``,
+      ``shared/attn/wq``, ``mamba/dt_proj``), its loss against the kernel
+      route printed, not gated. Each prints the step ms (median after the
+      first), tokens/s, the peak memory and 6*N*tokens / step time over the
+      bf16 peak.
+  (L) The Trainer and the launcher at StarCoder2-3B.reduced(): 12 steps
+      lower the loss, ``fail_at(5)`` with checkpoints every 2 steps recovers
+      to 8 steps with 1 restart, a second Trainer resumes at step 4; then
+      ``python -m repro_torch.launch.train --reduced --steps 4`` in a
+      subprocess exits 0, prints its ``done:`` line and leaves a checkpoint
+      that ``store.restore`` reads back bit-equal (checkpoints under
+      ``build/``, removed after).
 
 Then it holds the bf16 conv of VGG-16 to cuDNN in the same run (the sum of
 single calls over one forward at most 1.5x cuDNN's), the bf16 matmul of
@@ -130,9 +159,11 @@ from __future__ import annotations
 import functools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -140,10 +171,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch import tree  # noqa: E402
+from repro_torch.checkpoint import store  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core.netinfo import _B, vgg16  # noqa: E402
+from repro_torch.configs.base import ShapeSpec  # noqa: E402
+from repro_torch.core import screen  # noqa: E402
+from repro_torch.core.hw_specs import FPGAS  # noqa: E402
+from repro_torch.core.netinfo import _B, vgg16, vgg19  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, TokenPipeline  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.conv2d.conv2d import plan_for as conv_plan_for  # noqa: E402
 from repro_torch.kernels.conv2d.conv2d import relayout  # noqa: E402
@@ -166,7 +204,10 @@ from repro_torch.kernels.ssd.ref import ssd_ref  # noqa: E402
 from repro_torch.models import api, layers, ssm, transformer  # noqa: E402
 from repro_torch.models.cnn import (HybridPlan, forward, hybrid_forward,  # noqa: E402
                                     init_vgg)
+from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.serve.scheduler import ContinuousBatcher, Request  # noqa: E402
+from repro_torch.train.steps import build_step, cast_bf16  # noqa: E402
+from repro_torch.train.trainer import TrainConfig, Trainer  # noqa: E402
 
 # H100 SXM published peaks (dense): fp32 outside the tensor cores, bf16 on
 # them, and HBM3 bandwidth.
@@ -985,7 +1026,10 @@ def device_us_by_kernel(fn, calls: int = 20) -> dict:
     for ev in prof.key_averages():
         if ev.device_type == torch.autograd.DeviceType.CUDA and ev.device_time_total:
             name = ev.key.replace("(anonymous namespace)::", "").split("(")[0]
-            name = name.split("<")[0].split("::")[-1]
+            head, _, args = name.partition("<")
+            name = head.split("::")[-1]
+            if name.startswith("Kernel") and args:  # cutlass::Kernel2<the_gemm_name>: name it
+                name = args.split(",")[0].rstrip(">").split("::")[-1]
             out[name] = out.get(name, 0.0) + ev.device_time_total / calls
     return out
 
@@ -1328,6 +1372,298 @@ def phase_i(params, cfg) -> dict:
     return dict(total, ticks=b.steps, per_tick=want)
 
 
+# ---------------------------------------------------------------------------
+# The DSE screen on the card (phase J)
+# ---------------------------------------------------------------------------
+
+SCREEN_INPUTS = (64, 128, 224, 320, 384, 448)
+SCREEN_FPGAS = ("ku115", "zc706", "vu9p", "zcu102")
+SCREEN_PRECISIONS = (16, 8)
+SCREEN_N, SCREEN_BATCH_MAX, SCREEN_SEED = 4096, 8, 18
+# repro/core/search.py::SearchSpace.lo()/hi() at batch_max 8: [SP, batch,
+# dsp, bram, bw fractions], SP up to the net's major layers.
+FRAC_LO, FRAC_HI = 0.05, 0.95
+
+
+def screen_grid() -> tuple[list, list]:
+    """(cells, tables) of the phase J grid: VGG-16 and VGG-19 (as the campaign
+    builds them, no FC) at each input x board x precision."""
+    cells, tables = [], []
+    for name, build in (("vgg16", vgg16), ("vgg19", lambda h: vgg19(h, with_fc=False))):
+        for h in SCREEN_INPUTS:
+            net = build(h)
+            for fp in SCREEN_FPGAS:
+                for prec in SCREEN_PRECISIONS:
+                    cells.append((name, h, fp, prec, len(net.major_layers)))
+                    tables.append(screen.cell_tables(net, FPGAS[fp], prec, prec))
+    return cells, tables
+
+
+def phase_j() -> dict:
+    """The cross-cell DSE screen: the card's output equals the CPU's, bit for
+    bit; times a call on each."""
+    cells, tables = screen_grid()
+    stacked = screen.stack_cells(tables)
+    rng = np.random.default_rng(SCREEN_SEED)
+    positions = np.stack([
+        rng.uniform([0.0, 1.0, FRAC_LO, FRAC_LO, FRAC_LO],
+                    [float(sp_max), float(SCREEN_BATCH_MAX), FRAC_HI, FRAC_HI, FRAC_HI],
+                    size=(SCREEN_N, 5)) for *_, sp_max in cells])
+    out = screen.screen_cells(stacked, positions, device="cuda")
+    ref = screen.screen_cells(stacked, positions, device="cpu")
+    check(out.shape == (len(cells), SCREEN_N) and bool(np.isfinite(out).all()),
+          f"screen output {out.shape}, finite {bool(np.isfinite(out).all())}")
+    check(bool((out > 0).any()), "the screen scored no candidate above 0")
+    if not np.array_equal(out, ref):
+        bad = tuple(np.argwhere(out != ref)[0])
+        raise RuntimeError(f"the screen on the card differs from the CPU at cell "
+                           f"{cells[bad[0]][:4]} row {bad[1]}: {out[bad]!r} vs {ref[bad]!r}")
+    ms = time_ms(lambda: screen.screen_cells(stacked, positions, device="cuda"), reps=20)
+    tab = {k: torch.from_numpy(v).cuda() for k, v in stacked.items()}
+    pos = torch.from_numpy(positions).cuda()
+    device_ms = time_ms(lambda: screen._screen(tab, pos), reps=20)
+    cpu = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        screen.screen_cells(stacked, positions, device="cpu")
+        cpu.append((time.perf_counter() - t0) * 1e3)
+    cpu_ms = statistics.median(cpu)
+    rows = len(cells) * SCREEN_N
+    print(f"J float64 screen {len(cells)} cells x {SCREEN_N} candidates ({rows} rows): equal to "
+          f"the CPU bit for bit; {ms:.3f} ms a call (median, CUDA events, the host copies in and "
+          f"out included; {rows / ms * 1e3:.4g} candidates/s), {device_ms:.3f} ms on the device "
+          f"alone ({rows / device_ms * 1e3:.4g} candidates/s); CPU {cpu_ms:.3f} ms a call "
+          f"(host clock, median of 5; {rows / cpu_ms * 1e3:.4g} candidates/s)")
+    return {"cells": len(cells), "rows": rows, "ms": ms, "device_ms": device_ms, "cpu_ms": cpu_ms}
+
+
+# ---------------------------------------------------------------------------
+# Training on the card (phases K, L)
+# ---------------------------------------------------------------------------
+
+TRAIN_SHAPE = ShapeSpec("smoke_train", "train", 512, 4)
+TRAIN_STEPS = {LM_ARCH: 3, HYBRID_ARCH: 2}
+# the leaves whose in-place AdamW update is held to the reference formula out of place
+ADAMW_CHECKED = {LM_ARCH: ("embed", "blocks/attn/wq"),
+                 HYBRID_ARCH: ("embed", "shared/attn/wq", "mamba/dt_proj")}
+KERNEL_LOSS_TOL = 2e-2  # relative: StarCoder2's step-0 loss against the kernel route's prefill
+
+
+def leaf_at(params, key: str):
+    for part in key.split("/"):
+        params = params[part]
+    return params
+
+
+def adamw_reference(p, g, m, v, gnorm, count: int, ocfg):
+    """repro/optim/adamw.py::apply on one leaf, out of place: (p, mu, nu)."""
+    step = torch.tensor(float(count), device=p.device)
+    scale = torch.clamp(ocfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+    g = g.float() * scale
+    m = ocfg.b1 * m + (1 - ocfg.b1) * g
+    v = ocfg.b2 * v + (1 - ocfg.b2) * g * g
+    c1, c2 = 1 - torch.pow(ocfg.b1, step), 1 - torch.pow(ocfg.b2, step)
+    upd = (m / c1) / (torch.sqrt(v / c2) + ocfg.eps) + ocfg.weight_decay * p.float()
+    return (p.float() - adamw.schedule(ocfg, step) * upd).to(p.dtype), m, v
+
+
+def checked_adamw(apply, keys, errs: list):
+    """``apply`` (adamw.apply) that also holds each call, on the leaves
+    ``keys``, to adamw_reference: the inputs are copied before the in-place
+    update and the reference runs on the copies after it; the worst
+    normalised error of each call goes to ``errs``."""
+
+    def wrapped(grads, state, params, ocfg):
+        snap = {k: [leaf_at(t, k).clone() for t in (params, grads, state.mu, state.nu)]
+                for k in keys}
+        out = apply(grads, state, params, ocfg)
+        worst = 0.0
+        for k, (p, g, m, v) in snap.items():
+            want = adamw_reference(p, g, m, v, out[2]["grad_norm"], int(state.count), ocfg)
+            got = (leaf_at(params, k), leaf_at(state.mu, k), leaf_at(state.nu, k))
+            worst = max([worst] + [normalised_err(a, b) for a, b in zip(got, want)])
+        errs.append(worst)
+        return out
+
+    return wrapped
+
+
+def train_at_full_width(arch: str, gen) -> dict:
+    """``TRAIN_STEPS[arch]`` steps of build_step's train step at full width
+    (fp32 master weights, bf16 compute, remat "full"), batches from the
+    port's TokenPipeline(seed=0)."""
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init_params(cfg, generator=gen, device="cuda")
+    opt = adamw.init(params)
+    n = n_params(params)
+    data = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SHAPE.seq_len,
+                                    global_batch=TRAIN_SHAPE.global_batch, seed=0))
+    batches = [{k: torch.from_numpy(v).to("cuda", torch.int64) for k, v in data.make(s).items()}
+               for s in range(TRAIN_STEPS[arch])]
+
+    # the same weights and tokens on the kernel route: bf16 cast, use_kernel=True
+    reset_counts()
+    with torch.no_grad():
+        logits = api.prefill_logits(cast_bf16(params), cfg, batches[0], use_kernel=True)
+        kernel_loss = transformer.softmax_xent(logits, batches[0]["labels"]).item()
+    kernel_launches = counts()
+    check(kernel_launches == expected_launches(cfg),
+          f"{arch}: kernel-route prefill launches {kernel_launches}")
+    del logits
+
+    before = [t.to("cpu", copy=True) for t in tree.leaves(params)]  # the card holds the state
+    step_fn = build_step(cfg, TRAIN_SHAPE, device="cuda")
+    errs: list = []
+    apply = adamw.apply
+    adamw.apply = checked_adamw(apply, ADAMW_CHECKED[arch], errs)
+    losses, gnorms, walls, changed = [], [], [], []
+    try:
+        reset_counts()
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, loss, gnorm = step_fn(params, opt, batch)
+            losses.append(loss.item())
+            gnorms.append(gnorm.item())
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if before:
+                changed = [not torch.equal(t, b.to("cuda"))
+                           for t, b in zip(tree.leaves(params), before)]
+                before = None
+    finally:
+        adamw.apply = apply
+    train_launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses + gnorms),
+          f"{arch} training: losses {losses}, grad norms {gnorms}")
+    check(all(changed), f"{arch}: {changed.count(False)} parameter leaves did not change "
+                        f"at step 0")
+    check(max(errs) <= SAME, f"{arch}: in-place AdamW against the reference formula: "
+                             f"normalised errors {errs}")
+    check(sum(train_launches.values()) == 0,
+          f"{arch}: the training steps launched kernels {train_launches}")
+    tokens_n = TRAIN_SHAPE.seq_len * TRAIN_SHAPE.global_batch
+    step_ms = statistics.median(walls[1:])
+    # two more steps, the second under torch.profiler: device time by kernel
+    by_kernel = device_us_by_kernel(lambda: step_fn(params, opt, batches[-1]), calls=1)
+    return dict(arch=arch, cfg=cfg, params=n, losses=losses, gnorms=gnorms, walls=walls,
+                by_kernel=by_kernel,
+                step_ms=step_ms, tokens_per_s=tokens_n / step_ms * 1e3, peak_bytes=peak,
+                model_tflops=6 * n * tokens_n / (step_ms * 1e-3) / 1e12,
+                kernel_loss=kernel_loss, rel=abs(losses[0] - kernel_loss) / abs(kernel_loss),
+                adamw_err=max(errs), leaves=len(changed), kernel_launches=kernel_launches)
+
+
+def print_training(r: dict, gated: bool) -> None:
+    arch = r["arch"]
+    print(f"K {arch} train {TRAIN_SHAPE.global_batch} x {TRAIN_SHAPE.seq_len} "
+          f"({r['cfg'].n_layers} layers, {r['params'] / 1e9:.3f} B params; fp32 master weights, "
+          f"bf16 compute, remat full, the plain route): losses "
+          + " ".join(f"{x:.4f}" for x in r["losses"]) + "  grad norms "
+          + " ".join(f"{x:.4f}" for x in r["gnorms"])
+          + f"  all {r['leaves']} leaves changed at step 0; in-place AdamW against the "
+          f"reference formula {r['adamw_err']:.3e} (gate {SAME}); 0 kernel launches in the steps")
+    print(f"K {arch} step-0 loss {r['losses'][0]:.5f} against the kernel route's prefill "
+          f"(bf16 cast, use_kernel=True, launches {r['kernel_launches']}) {r['kernel_loss']:.5f}: "
+          f"relative {r['rel']:.3e} "
+          + (f"(gate {KERNEL_LOSS_TOL})" if gated else "(printed, not gated)"))
+    print(f"K {arch} step walls " + " ".join(f"{w:.1f}" for w in r["walls"])
+          + f" ms; step {r['step_ms']:.1f} ms (median after the first), "
+          f"{r['tokens_per_s']:.1f} tokens/s, peak memory {r['peak_bytes'] / 1e9:.2f} GB "
+          f"(max_memory_allocated); 6*N*tokens / step time = {r['model_tflops']:.2f} TFLOP/s, "
+          f"{r['model_tflops'] / (PEAK_FLOPS[torch.bfloat16] / 1e12):.2%} of the bf16 peak "
+          f"989 TFLOP/s (the plain route's products run in fp32)")
+    by = sorted(r["by_kernel"].items(), key=lambda kv: -kv[1])
+    device_ms = sum(r["by_kernel"].values()) / 1e3
+    gemm_ms = sum(us for name, us in by if "gemm" in name.lower()) / 1e3
+    print(f"K {arch} one step's device time (torch.profiler): {device_ms:.1f} ms in "
+          f"{len(by)} kernel names, {device_ms / r['step_ms']:.1%} of the step wall; GEMM "
+          f"kernels {gemm_ms:.1f} ms ({gemm_ms / max(device_ms, 1e-9):.1%}); top: "
+          + "  ".join(f"{name} {us / 1e3:.1f} ms ({us / 1e3 / device_ms:.1%})"
+                      for name, us in by[:6]))
+
+
+def phase_k(gen) -> dict:
+    """Training at full width: StarCoder2-3B (3 steps, the step-0 loss gated
+    against the kernel route) then Zamba2-2.7B (2 steps, that loss printed)."""
+    out = {}
+    for arch in (LM_ARCH, HYBRID_ARCH):
+        r = train_at_full_width(arch, gen)
+        gated = arch == LM_ARCH
+        print_training(r, gated)
+        if gated:
+            check(r["rel"] <= KERNEL_LOSS_TOL,
+                  f"{arch}: step-0 loss {r['losses'][0]} vs kernel route {r['kernel_loss']}")
+        out[arch] = {k: r[k] for k in ("params", "losses", "step_ms", "tokens_per_s",
+                                       "peak_bytes", "model_tflops", "rel")}
+        del r
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_l() -> None:
+    """The Trainer and the launcher at StarCoder2-3B.reduced() on the card:
+    tests/test_runtime.py's three Trainer checks, then the launcher in a
+    subprocess, its checkpoint read back bit-equal."""
+    cfg, shape = get_config(LM_ARCH).reduced(), ShapeSpec("t", "train", 64, 4)
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    reset_counts()
+    with tempfile.TemporaryDirectory(dir=scratch) as d:
+        tr = Trainer(cfg, shape, TrainConfig(steps=12, ckpt_every=100, ckpt_dir=f"{d}/a",
+                                             log_every=100), device="cuda")
+        tr.run()
+        first = statistics.mean(s["loss"] for s in tr.stats[:3])
+        last = statistics.mean(s["loss"] for s in tr.stats[-3:])
+        check(last < first, f"Trainer: loss did not decrease: {first} -> {last}")
+
+        tr2 = Trainer(cfg, shape, TrainConfig(steps=8, ckpt_every=2, ckpt_dir=f"{d}/b",
+                                              log_every=100), device="cuda")
+        tr2.fail_at(5)
+        tr2.run()
+        check(tr2.step == 8 and tr2._restarts == 1
+              and {s["step"] for s in tr2.stats} == set(range(8)),
+              f"failure injection: step {tr2.step}, restarts {tr2._restarts}, "
+              f"steps {sorted(s['step'] for s in tr2.stats)}")
+
+        Trainer(cfg, shape, TrainConfig(steps=4, ckpt_every=4, ckpt_dir=f"{d}/c",
+                                        log_every=100), device="cuda").run()
+        tr3 = Trainer(cfg, shape, TrainConfig(steps=8, ckpt_every=4, ckpt_dir=f"{d}/c",
+                                              log_every=100), device="cuda")
+        tr3.run()
+        check(min(s["step"] for s in tr3.stats) == 4, "the second Trainer did not resume at 4")
+        trainer_launches = counts()
+        check(sum(trainer_launches.values()) == 0, f"the Trainer launched {trainer_launches}")
+
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch", LM_ARCH,
+                              "--reduced", "--steps", "4", "--batch", "4", "--seq", "64",
+                              "--ckpt-dir", f"{d}/cli"], cwd=ROOT, capture_output=True,
+                             text=True, timeout=600,
+                             env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        cli_s = time.perf_counter() - t0
+        done = [line for line in run.stdout.splitlines() if line.startswith("done:")]
+        check(run.returncode == 0 and len(done) == 1,
+              f"launcher exit {run.returncode}: {run.stdout[-1000:]} {run.stderr[-2000:]}")
+        step = store.latest_step(f"{d}/cli")
+        check(step == 4, f"the launcher left checkpoint step {step}")
+        like = api.init_params(cfg, generator=torch.Generator(device="cuda").manual_seed(1),
+                               device="cuda")
+        restored = store.restore(f"{d}/cli", step, {"params": like, "opt": adamw.init(like)})
+        flat = tree.flatten(restored)
+        with np.load(f"{d}/cli/step_{step:08d}/arrays.npz") as z:
+            equal = sorted(z.files) == sorted(k for k, _ in flat) and all(
+                np.array_equal(t.cpu().numpy(), z[k]) for k, t in flat)
+        check(equal, "the launcher's checkpoint did not read back bit-equal")
+    print(f"L {LM_ARCH}.reduced() Trainer on the card: 12 steps, loss {first:.4f} -> {last:.4f} "
+          f"(mean of the first and last 3); fail_at(5) with ckpt_every=2: 8 steps, 1 restart, "
+          f"all 8 in stats; a second Trainer resumed at step 4; 0 kernel launches")
+    print(f"L launcher: {done[0]} (exit 0, {cli_s:.1f} s with the process start); its step-4 "
+          f"checkpoint restored bit-equal ({len(flat)} leaves)")
+
+
 def matmul_floors(rows, hybrid_rows) -> None:
     """The redesigned matmul against torch.matmul in this run, bf16: the
     prefill sum of single calls at most 4x torch.matmul's, the decode tick's
@@ -1464,6 +1800,11 @@ def main() -> int:
     hybrid_serving = phase_i(params, cfg)
     del params
     torch.cuda.empty_cache()
+    for name, phase in (("J", phase_j), ("K", lambda: phase_k(gen)), ("L", phase_l)):
+        t0 = time.perf_counter()
+        phase()
+        torch.cuda.empty_cache()
+        print(f"{name} wall {time.perf_counter() - t0:.1f} s")
 
     conv_floor(rows)
     matmul_floors(lm_rows, hybrid_rows)

@@ -11,17 +11,17 @@ import importlib
 from .base import SHAPES, ArchConfig, MoECfg, ShapeSpec, SSMCfg
 
 ARCH_IDS = (
+    "nemotron-4-340b",
     "starcoder2-3b",
+    "starcoder2-15b",
     "h2o-danube-3-4b",
+    "llava-next-34b",
     "zamba2-2.7b",
 )
 
 # Architectures of the JAX package that the port does not serve yet, with
 # the ROADMAP.md queue 1 item that ports them.
 NOT_PORTED = {
-    "nemotron-4-340b": "item 4 (dense LM; its config is not copied yet)",
-    "starcoder2-15b": "item 4 (dense LM; its config is not copied yet)",
-    "llava-next-34b": "item 4 (the VLM branch of the dense LM)",
     "xlstm-350m": "item 8 (the xLSTM part of the SSM family)",
     "llama4-maverick-400b-a17b": "item 9 (MoE)",
     "kimi-k2-1t-a32b": "item 9 (MoE)",

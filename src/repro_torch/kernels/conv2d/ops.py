@@ -5,11 +5,14 @@ launches the CUDA kernel (or raises) on the route ``conv2d.plan_for``
 picks; a CPU tensor takes the plain version ``conv2d_ref``.
 ``conv2d.launches`` counts kernel launches, one per call, and
 ``conv2d.launches_by_route`` splits them by route (``wgmma``, ``direct``).
+It raises when autograd would record the call (``refuse_grad``): the
+kernel has no backward, and training takes the plain route.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from .conv2d import ROUTES, launch, plan_for
 from .ref import conv2d_ref
 
@@ -43,6 +46,7 @@ def _check(x, w) -> None:
 def conv2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (N, C, H, W); w (K, C, R, S) -> (N, K, H, W), 'same' pad, stride 1."""
     _check(x, w)
+    refuse_grad("conv2d", x, w)
     if x.device.type == "cpu":
         return conv2d_ref(x, w)
     out = torch.empty((x.shape[0], w.shape[0], x.shape[2], x.shape[3]),

@@ -11,11 +11,14 @@ raises) on the route ``flash_attention.plan_for`` picks; a CPU tensor takes
 the plain version ``attention_ref``. ``flash_attention.launches`` counts
 kernel launches, one per call, and ``flash_attention.launches_by_route``
 splits them by route (``wgmma``, ``simt``).
+It raises when autograd would record the call (``refuse_grad``): the
+kernel has no backward, and training takes the plain route.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from .flash_attention import DTYPE_CODES, ROUTES, launch, plan_for
 from .ref import attention_ref
 
@@ -54,6 +57,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
                     window: int | None = None) -> torch.Tensor:
     """q (B, S, H, hd); k, v (B, Sk, KV, hd) -> (B, S, H, hd)."""
     _check(q, k, v, window)
+    refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
     out = torch.empty_like(q)

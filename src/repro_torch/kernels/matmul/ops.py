@@ -7,11 +7,14 @@ tensor launches the CUDA kernel (or raises) on the route ``matmul.plan_for``
 picks; a CPU tensor takes the plain version ``matmul_ref``.
 ``matmul.launches`` counts kernel launches, one per call, and
 ``matmul.launches_by_route`` splits them by route (``wgmma``, ``simt``).
+It raises when autograd would record the call (``refuse_grad``): the
+kernel has no backward, and training takes the plain route.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from .matmul import DTYPE_CODES, ROUTES, launch, plan_for
 from .ref import matmul_ref
 
@@ -46,6 +49,7 @@ def _check(a, b, out_dtype) -> None:
 def matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
     """a (M, K) @ b (K, N) -> (M, N) in ``out_dtype or a.dtype``, fp32 sums."""
     _check(a, b, out_dtype)
+    refuse_grad("matmul", a, b)
     if a.device.type == "cpu":
         return matmul_ref(a, b, out_dtype=out_dtype)
     out = torch.empty((a.shape[0], b.shape[1]), dtype=out_dtype or a.dtype, device=a.device)

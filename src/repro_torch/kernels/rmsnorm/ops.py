@@ -4,11 +4,14 @@ The counterpart of ``repro/kernels/rmsnorm/ops.py::rmsnorm``: it takes the
 model-native (..., D) activations. A CUDA tensor launches the CUDA kernel
 (or raises) as ``rmsnorm.plan_for`` cuts the rows; a CPU tensor takes the
 plain version ``rmsnorm_ref``. ``rmsnorm.launches`` counts kernel launches.
+It raises when autograd would record the call (``refuse_grad``): the
+kernel has no backward, and training takes the plain route.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from .ref import rmsnorm_ref
 from .rmsnorm import DTYPE_CODES, plan_for, rmsnorm_rows
 
@@ -38,6 +41,7 @@ def _check(x, scale) -> None:
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
     """x (..., D); scale (D,) -> (..., D) in x's dtype, fp32 arithmetic."""
     _check(x, scale)
+    refuse_grad("rmsnorm", x, scale)
     if x.device.type == "cpu":
         return rmsnorm_ref(x, scale, eps)
     out = torch.empty_like(x)

@@ -11,11 +11,14 @@ here. A CUDA tensor launches the CUDA kernels (or raises) on the route
 ``ssd.launches`` counts kernel launches, one per call (the wgmma route's
 two kernels are one ctypes call), and ``ssd.launches_by_route`` splits
 them by route (``wgmma``, ``simt``).
+It raises when autograd would record the call (``refuse_grad``): the
+kernel has no backward, and training takes the plain route.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from .ref import ssd_ref
 from .ssd import DTYPE_CODES, ROUTES, plan_for, ssd_scan, state_scratch
 
@@ -66,6 +69,7 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor,
         c: torch.Tensor, *, chunk: int = 128) -> torch.Tensor:
     """x (B, S, H, P); dt (B, S, H); a_log (H,); b, c (B, S, N) -> (B, S, H, P)."""
     q = _check(x, dt, a_log, b, c, chunk)
+    refuse_grad("ssd", x, dt, a_log, b, c)
     if x.device.type == "cpu":
         return ssd_ref(x, dt, a_log, b, c, chunk)
     a = -torch.exp(a_log.float())

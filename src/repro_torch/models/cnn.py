@@ -17,17 +17,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.netinfo import NetInfo
+from repro_torch.device import resolve as _device
 from repro_torch.kernels.conv2d.ops import conv2d
 from repro_torch.kernels.conv2d.ref import conv2d_ref
 from repro_torch.parallel.pipeline import pipeline_apply, split_microbatches
-
-
-def _device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to run the "
-                           "port on the CPU")
-    return device
 
 
 def init_vgg(net: NetInfo, *, generator: torch.Generator, device="cuda",

@@ -68,6 +68,22 @@ def rms_norm(x: torch.Tensor, params, eps: float = 1e-6, *, use_kernel: bool = F
     return rmsnorm_ref(x, params["scale"], eps)
 
 
+def init_layernorm(d: int, dtype=torch.float32, *, device="cpu"):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layer_norm(x: torch.Tensor, params, eps: float = 1e-5) -> torch.Tensor:
+    """(x - mean) * rsqrt(var + eps) * scale + bias in fp32, cast back to x's
+    dtype; the variance is the mean of squared deviations, as the reference
+    takes it. No Pallas kernel of the reference computes it."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"] + params["bias"]).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embeddings
 # ---------------------------------------------------------------------------

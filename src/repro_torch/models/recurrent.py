@@ -6,8 +6,11 @@ weights are the JAX tree: the Mamba2 leaves stacked along (G, per, ...)
 (G groups of ``cfg.shared_attn_every`` layers), the shared attention and
 MLP block stored once, one shared pre-norm scale ``mamba_ln``; so
 ``transformer.params_from_jax`` carries them across unchanged. Python loops
-replace ``jax.lax.scan``; its ``remat`` and ``unroll`` are JAX compile
-options with no counterpart.
+replace ``jax.lax.scan`` (its ``unroll`` is a JAX compile option with no
+counterpart). ``remat="full"`` checkpoints each group (its Mamba2 layers
+and the shared block) while grad mode is on, as the reference's
+``jax.checkpoint(group)`` does; any other value runs the groups plainly,
+as there.
 
 With ``use_kernel=True`` the prefill scan goes through the SSD kernel,
 prefill attention through the flash-attention kernel, every dense product
@@ -25,7 +28,7 @@ from repro_torch.kernels.flash_attention.ops import attn_fn as flash_attn_fn
 from .layers import (dense_init, embed_init, gqa_attention, gqa_decode_attention,
                      init_attention, init_mlp, init_rmsnorm, linear, mlp, rms_norm)
 from .ssm import init_mamba2, mamba2_apply, mamba2_decode
-from .transformer import _device, _map, _stack, layer
+from .transformer import _device, _map, _stack, layer, rematted, unstack
 
 
 def init_zamba(cfg: ArchConfig, *, generator: torch.Generator, device="cuda",
@@ -60,23 +63,28 @@ def _groups(cfg: ArchConfig) -> tuple[int, int]:
 
 
 def zamba_forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
-                  compute_dtype=torch.bfloat16, use_kernel: bool = True) -> torch.Tensor:
+                  compute_dtype=torch.bfloat16, remat: str = "full",
+                  use_kernel: bool = True) -> torch.Tensor:
     """tokens (B, S) integer -> logits (B, S, vocab) in fp32."""
     x = params["embed"][tokens].to(compute_dtype)
     shared = params["shared"]
     attn_fn = flash_attn_fn if use_kernel else None
     n_groups, per = _groups(cfg)
-    for g in range(n_groups):
-        gp = layer(params["mamba"], g)
-        for i in range(per):
+
+    def group(x, gp):
+        for mp in unstack(gp, per):
             h = rms_norm(x, params["mamba_ln"], use_kernel=use_kernel)
-            x = x + mamba2_apply(h, layer(gp, i), cfg.ssm, use_kernel=use_kernel)
+            x = x + mamba2_apply(h, mp, cfg.ssm, use_kernel=use_kernel)
         # the shared attention block (the same params after every group)
         x = x + gqa_attention(rms_norm(x, shared["ln1"], use_kernel=use_kernel),
                               shared["attn"], cfg.n_heads, cfg.n_kv, rope=cfg.rope,
                               rope_theta=cfg.rope_theta, attn_fn=attn_fn, use_kernel=use_kernel)
-        x = x + mlp(rms_norm(x, shared["ln2"], use_kernel=use_kernel), shared["mlp"],
-                    cfg.activation, use_kernel=use_kernel)
+        return x + mlp(rms_norm(x, shared["ln2"], use_kernel=use_kernel), shared["mlp"],
+                       cfg.activation, use_kernel=use_kernel)
+
+    body = rematted(group, "full") if remat == "full" else group
+    for gp in unstack(params["mamba"], n_groups):
+        x = body(x, gp)
     x = rms_norm(x, params["ln_f"], use_kernel=use_kernel)
     return linear(x, params["lm_head"], use_kernel).float()
 

@@ -1,36 +1,40 @@
-"""Dense decoder-only LM (starcoder2, h2o-danube): prefill forward and
-one-token decode against a KV cache.
+"""Dense decoder-only LM (starcoder2, h2o-danube, nemotron-4, the llava
+backbone): prefill forward, training loss, and one-token decode against a
+KV cache.
 
 The counterpart of ``repro/models/transformer.py``. Weights are the same
 nested dict as the JAX tree, with the blocks stacked along a leading
 (L, ...) axis, so carrying weights across is a leaf-by-leaf conversion
 (``params_from_jax``); the layers run in a Python loop over that axis
-(``jax.lax.scan`` in the reference; its ``remat`` and ``unroll`` are JAX
-compile options with no counterpart).
+(``jax.lax.scan`` in the reference; its ``unroll`` is a JAX compile option
+with no counterpart). ``remat`` is the reference's activation-checkpoint
+policy per block: ``"full"`` recomputes the block in the backward pass
+(``torch.utils.checkpoint``), ``"dots"`` saves the outputs of the products
+without batch dimensions (the projections, as
+``checkpoint_dots_with_no_batch_dims`` does) and recomputes the rest,
+``"none"`` saves everything; it applies only while grad mode is on.
 
 With ``use_kernel=True`` every dense product (wq, wk, wv, wo, w_up,
-w_gate, w_down and the LM head) goes through the matmul kernel, every
-RMSNorm through the RMSNorm kernel, and prefill attention through the
-flash-attention kernel. ``use_kernel=False`` takes their plain versions:
-the oracle of tests and the smoke run.
+w_gate, w_down, the VLM projector and the LM head) goes through the matmul
+kernel, every RMSNorm through the RMSNorm kernel, and prefill attention
+through the flash-attention kernel. ``use_kernel=False`` takes their plain
+versions: the oracle of tests and the smoke run, and the training route
+(the kernels have no backward; ``api.loss_fn`` takes it).
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve as _device
 from repro_torch.kernels.flash_attention.ops import attn_fn as flash_attn_fn
 from .layers import (dense_init, embed_init, gqa_attention, gqa_decode_attention,
                      init_attention, init_mlp, init_rmsnorm, linear, mlp, rms_norm)
-
-
-def _device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to run the "
-                           "port on the CPU")
-    return device
 
 
 def _map(fn, tree):
@@ -51,6 +55,42 @@ def layer(blocks, i: int):
     return _map(lambda t: t[i], blocks)
 
 
+def unstack(blocks, n: int) -> list:
+    """The params of each of the ``n`` blocks, as views into the stacked
+    (n, ...) leaves: one ``unbind`` a leaf, whose backward stacks the
+    blocks' gradients once (indexing block by block would add a zero
+    gradient of the whole leaf per block)."""
+    parts = _map(lambda t: t.unbind(0), blocks)
+    return [_map(lambda p: p[i], parts) for i in range(n)]
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``checkpoint_dots_with_no_batch_dims``: keep the outputs of the 2-D
+    products (the projections), recompute the rest (the attention's batched
+    products included)."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+REMATS = ("full", "dots", "none")
+
+
+def rematted(fn, remat: str):
+    """``fn`` under the activation-checkpoint policy ``remat`` while grad mode
+    is on; ``fn`` itself otherwise."""
+    if remat not in REMATS:
+        raise ValueError(f"remat must be one of {REMATS}; got {remat!r}")
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    return functools.partial(checkpoint, fn, use_reentrant=False,
+                             context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                                          _save_dots))
+
+
 def init_block(generator: torch.Generator, cfg: ArchConfig, dtype=torch.float32, *,
                device="cpu"):
     return {
@@ -66,9 +106,6 @@ def init_lm(cfg: ArchConfig, *, generator: torch.Generator, device="cuda",
             dtype=torch.float32):
     """Random weights from ``generator``; the JAX initialisers' scales."""
     device = _device(device)
-    if cfg.n_patches:
-        raise NotImplementedError("the VLM projector is not ported yet "
-                                  "(ROADMAP.md queue 1 item 4, VLM branch)")
     params = {
         "embed": embed_init(generator, cfg.vocab, cfg.d_model, dtype, device=device),
         "blocks": _stack([init_block(generator, cfg, dtype, device=device)
@@ -77,6 +114,9 @@ def init_lm(cfg: ArchConfig, *, generator: torch.Generator, device="cuda",
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(generator, cfg.d_model, cfg.vocab, dtype, device=device)
+    if cfg.n_patches:
+        params["projector"] = dense_init(generator, cfg.vision_embed_dim, cfg.d_model, dtype,
+                                         device=device)
     return params
 
 
@@ -113,17 +153,44 @@ def block_apply(x, bp, cfg: ArchConfig, attn_fn=None, *, use_kernel: bool = Fals
 
 
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor, patch_embeds=None, *,
-            compute_dtype=torch.bfloat16, use_kernel: bool = True) -> torch.Tensor:
-    """tokens (B, S) integer -> logits (B, S, vocab) in fp32."""
-    if patch_embeds is not None:
-        raise NotImplementedError("patch embeddings (VLM) are not ported yet "
-                                  "(ROADMAP.md queue 1 item 4, VLM branch)")
+            compute_dtype=torch.bfloat16, remat: str = "full",
+            use_kernel: bool = True) -> torch.Tensor:
+    """tokens (B, S_text) integer -> logits (B, S, vocab) in fp32.
+
+    VLM: ``patch_embeds`` (B, P, vision_embed_dim) are projected and
+    prepended to the token embeddings (the anyres frontend is a stub, as in
+    the reference).
+    """
     x = params["embed"][tokens].to(compute_dtype)
+    if patch_embeds is not None:
+        proj = linear(patch_embeds.to(compute_dtype), params["projector"], use_kernel)
+        x = torch.cat([proj, x], dim=1)
     attn_fn = flash_attn_fn if use_kernel else None
-    for i in range(cfg.n_layers):
-        x = block_apply(x, layer(params["blocks"], i), cfg, attn_fn, use_kernel=use_kernel)
+    body = rematted(block_apply, remat)
+    for bp in unstack(params["blocks"], cfg.n_layers):
+        x = body(x, bp, cfg, attn_fn, use_kernel=use_kernel)
     x = rms_norm(x, params["ln_f"], use_kernel=use_kernel)
     return linear(x, _head(params), use_kernel).float()
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross entropy, contracting the vocab axis with a one-hot as the
+    reference does. The one-hot is built by comparison, as
+    ``jax.nn.one_hot`` is: a label outside [0, vocab) gives a zero row
+    (its target logit counts as 0), where ``F.one_hot`` would raise.
+    logsumexp in fp32, the target contraction in the logits' dtype."""
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    vocab = torch.arange(logits.shape[-1], device=labels.device)
+    onehot = (labels[..., None] == vocab).to(logits.dtype)
+    target = torch.einsum("bsv,bsv->bs", logits, onehot).float()
+    return (lse - target).mean()
+
+
+def loss_fn(params, cfg: ArchConfig, tokens, labels, patch_embeds=None, **kw) -> torch.Tensor:
+    logits = forward(params, cfg, tokens, patch_embeds, **kw)
+    if patch_embeds is not None:
+        logits = logits[:, patch_embeds.shape[1]:]  # only text positions scored
+    return softmax_xent(logits, labels)
 
 
 # ---------------------------------------------------------------------------

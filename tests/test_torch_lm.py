@@ -22,6 +22,9 @@ from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.models import api, layers, transformer  # noqa: E402
 
 ARCHS = ["starcoder2-3b", "h2o-danube-3-4b"]
+# configs copied later (ROADMAP.md queue 1 item 4): nemotron's squared-ReLU
+# MLP and llava's projector run at their reduced sizes
+COPIED = ["nemotron-4-340b", "starcoder2-15b", "llava-next-34b"]
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # normalised: max|d| / max|ref|
 SEQ = 96  # past Danube's reduced window of 64
@@ -49,7 +52,7 @@ def _err(out, ref) -> float:
     return float(np.abs(out - ref).max() / np.abs(ref).max())
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + COPIED)
 @pytest.mark.parametrize("reduced", [False, True])
 def test_config_copy_matches_reference(arch, reduced):
     ours, ref = get_config(arch), jax_get_config(arch)
@@ -83,7 +86,7 @@ def test_params_from_jax(arch, models):
     assert tparams["blocks"]["attn"]["wq"].shape[0] == cfg.n_layers
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + COPIED[:2])
 @pytest.mark.parametrize("name", list(DTYPES))
 @pytest.mark.parametrize("use_kernel", [False, True])
 def test_prefill_matches_jax(arch, name, use_kernel, models):
@@ -123,6 +126,65 @@ def test_decode_matches_jax_tick_by_tick(arch, name, models):
         for key in ("k", "v"):
             assert tcache[key].dtype == tdt
             assert _err(tcache[key].float().numpy(), jcache[key]) <= TOL[name], (t, key)
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_vlm_prefill_matches_jax(name, use_kernel, models):
+    """llava-next-34b: patch embeddings projected and prepended to the text
+    embeddings; logits over patches and text."""
+    jcfg, jparams, cfg, tparams = models("llava-next-34b")
+    jdt, tdt = DTYPES[name]
+    rng = np.random.default_rng(6)
+    toks = rng.integers(0, cfg.vocab, (2, 24))
+    patches = rng.standard_normal((2, cfg.n_patches, cfg.vision_embed_dim)).astype(np.float32)
+    ref = jax_transformer.forward(jparams, jcfg, jnp.asarray(toks), jnp.asarray(patches),
+                                  compute_dtype=jdt, remat="none",
+                                  attn_fn=jax_attn_fn if use_kernel else None)
+    out = api.prefill_logits(tparams, cfg, {"tokens": torch.from_numpy(toks),
+                                            "patch_embeds": torch.from_numpy(patches)},
+                             compute_dtype=tdt, use_kernel=use_kernel)
+    assert out.shape == (2, cfg.n_patches + 24, cfg.vocab) and out.dtype == torch.float32
+    assert _err(out.numpy(), ref) <= TOL[name]
+
+
+def test_vlm_decode_matches_jax(models):
+    """The VLM decodes text as the dense LM does (api's "vlm" branches): 6
+    ticks, logits and caches, fp32."""
+    jcfg, jparams, cfg, tparams = models("llava-next-34b")
+    toks = np.random.default_rng(8).integers(0, cfg.vocab, (2, 6))
+    jcache = jax_api.init_cache(jcfg, 2, 8, dtype=jnp.float32)
+    tcache = api.init_cache(cfg, 2, 8, torch.float32, device="cpu")
+    for t in range(6):
+        pos = np.full((2,), t, np.int32)
+        jlogits, jcache = jax_api.decode_step(jparams, jcfg, jcache, jnp.asarray(toks[:, t:t + 1]),
+                                              jnp.asarray(pos), compute_dtype=jnp.float32)
+        with torch.inference_mode():
+            logits, tcache = api.decode_step(tparams, cfg, tcache,
+                                             torch.from_numpy(toks[:, t:t + 1]),
+                                             torch.from_numpy(pos).long(),
+                                             compute_dtype=torch.float32)
+        assert _err(logits.numpy(), jlogits) <= TOL["float32"], t
+        for key in ("k", "v"):
+            assert _err(tcache[key].numpy(), jcache[key]) <= TOL["float32"], (t, key)
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_layer_norm_matches_jax(name):
+    from repro.models import layers as jax_layers
+    jdt, tdt = DTYPES[name]
+    rng = np.random.default_rng(9)
+    x = (rng.standard_normal((3, 5, 96)) * 4 + 1.5).astype(np.float32)
+    params = {"scale": rng.standard_normal(96).astype(np.float32),
+              "bias": rng.standard_normal(96).astype(np.float32)}
+    ref = jax_layers.layer_norm(jnp.asarray(x, jdt), jax.tree.map(jnp.asarray, params))
+    out = layers.layer_norm(torch.from_numpy(x).to(tdt),
+                            {k: torch.from_numpy(v) for k, v in params.items()})
+    assert out.dtype == tdt
+    assert _err(out.float().numpy(), np.asarray(ref, np.float32)) <= TOL[name]
+    init = layers.init_layernorm(96, device="cpu")
+    assert jax.tree.map(np.asarray, jax_layers.init_layernorm(96)).keys() == init.keys()
+    assert torch.equal(init["scale"], torch.ones(96)) and torch.equal(init["bias"], torch.zeros(96))
 
 
 def test_decode_past_cache_end_matches_jax(models):
@@ -185,7 +247,7 @@ def test_default_device_raises_without_cuda():
         transformer.params_from_jax({"w": np.zeros(2, np.float32)})
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + COPIED[2:])
 def test_init_lm_matches_reference_tree(arch, models):
     """The port's own initialiser gives the JAX tree's structure, shapes and
     scales (the values differ: torch.Generator is not jax.random)."""
@@ -223,7 +285,7 @@ def test_silu_rounds_as_jax():
 
 
 @pytest.mark.parametrize("family_arch", ["xlstm-350m", "kimi-k2-1t-a32b", "whisper-base",
-                                         "llava-next-34b"])
+                                         "llama4-maverick-400b-a17b"])
 def test_other_families_not_ported(family_arch):
     cfg = jax_get_config(family_arch).reduced()
     # the JAX config dataclass is another class; rebuild it as the port's
