@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with a CUDA device and nvcc:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch`` (nvcc, sm_90a,
-one process per source, all started together) and then runs twelve phases;
+one process per source, all started together) and then runs sixteen phases;
 any failure raises and exits non-zero.
 
   (A) The conv kernel against its plain PyTorch version at every distinct
@@ -140,6 +140,56 @@ any failure raises and exits non-zero.
       subprocess exits 0, prints its ``done:`` line and leaves a checkpoint
       that ``store.restore`` reads back bit-equal (checkpoints under
       ``build/``, removed after).
+  (M) The hybrid LM plan on StarCoder2-3B at full width and depth, bf16,
+      4 x 512: ``hybrid_lm_forward`` with HybridLMPlan(sp=8, n_stages=4,
+      n_micro=4), pipelined on the kernel route, against
+      ``api.prefill_logits`` on the kernel route and against the pipelined
+      plain route (2e-2), the sequential plan against prefill_logits (1e-6);
+      exactly 469 matmul (all wgmma), 157 RMSNorm and 78 flash launches (the
+      one-device GPipe calls each head stage at 7 ticks: 56 head block
+      calls and 22 tail) against the prefill's 181 / 61 / 30. Then
+      ``quantize_params`` of the same weights: ``storage_bytes`` before and
+      after, the latter equal to the count from the leaf shapes; every
+      dequantized weight within half a scale of the original (fp32); the
+      dequantized bf16 prefill's logits error and top-1 agreement against
+      the unquantized one printed, not gated.
+  (N) xLSTM-350M at full width and depth (24 blocks, an sLSTM every 6th),
+      bf16 weights: prefill 4 x 512 in bf16 and in fp32, exactly 2173
+      matmul launches (6 an mLSTM block, 1 + 512 an sLSTM block: its
+      recurrent product at every step, the head; bf16: wi and wf, N = 4,
+      on simt, the rest wgmma; fp32: all simt) and 49 RMSNorm. The random
+      model amplifies roundings (the end-to-end errors are printed), so
+      every block and the head is held kernel route against plain route
+      on the same input (2e-2 bf16, 2e-4 fp32) and the blocks chained by
+      hand within 1e-6 of ``prefill_logits`` on both routes. Then
+      ``ContinuousBatcher`` with 8 requests on 4 slots: 129 matmul (40
+      simt) and 49 RMSNorm launches a tick, every reused slot starts from
+      the initial state (m = -1e30), ticks 0-3 block by block against the
+      plain route and chained against ``decode_step``, steps and
+      utilization equal to a plain-route batcher's.
+  (O) Whisper-base at full width and depth (6 + 6 layers, d 512, 8 heads of
+      64, vocab 51865), seeded frames (4, 1500, 512) and tokens 4 x 448,
+      bf16 and fp32: ``encode`` (36 matmul, 6 flash, not causal) and
+      ``decode_train`` (61 matmul, the tied head at N = 51865 on simt; 12
+      flash: causal self-attention and cross-attention, 448 queries over
+      1500 keys) against the plain route on the same input; then
+      ``prefill_cross`` (12 matmul) and 448 ``decode_step``s (49 matmul
+      each), whose last logits match ``decode_train``'s at the last
+      position (2e-2 bf16, 2e-4 fp32).
+  (P) Kimi-K2 at full width, 1 of its 61 layers (one layer's 384 experts
+      are 33.8 GB in bf16; the weights drawn expert by expert), prefill 4 x
+      512 (capacity 54): exactly 1161 matmul launches (attention 4, router
+      1, 1152 expert products, shared expert 3, head 1; all wgmma), 3
+      RMSNorm, 1 flash; fed the same input, the attention, the router
+      logits and the head within 2e-2 of the plain route, the top-k sets
+      of the two routes agreeing on at least 99 % of the tokens and the
+      MoE output within 2e-2 on the tokens whose sets and kept assignments
+      agree; dropped assignments and the host time of the 1152 expert
+      launches printed. Then 8 decode ticks of 4 slots (capacity 4), 1161
+      matmul launches each, beside the 10.1 ms that reading every
+      expert's weights once takes.
+  Phases M-P print their walls, tokens/s and peak memory; each draws from
+  a generator of its own.
 
 Then it holds the bf16 conv of VGG-16 to cuDNN in the same run (the sum of
 single calls over one forward at most 1.5x cuDNN's), the bf16 matmul of
@@ -150,12 +200,14 @@ StarCoder2 (hd 128), 3x on Zamba2 (hd 80), the bf16 RMSNorm of each LM's
 prefill, back to back, to at most 1.05x F.rms_norm's (the single-call and
 decode sums printed), and the bf16 SSD at Zamba2's prefill shape, back to
 back, to at most 10x its bytes bound. Its last two
-lines are the kernel summary (one JSON object) and the result
+lines are the kernel summary (one JSON object; the matmul, RMSNorm and
+flash entries carry the launches of phases M-P by path) and the result
 ``{"ok": true, "device": {...}}``. There is no CPU fallback: without a CUDA
 device it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import math
@@ -201,11 +253,15 @@ from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
 from repro_torch.kernels.ssd.ops import ssd  # noqa: E402
 from repro_torch.kernels.ssd.ssd import plan_for as ssd_plan_for  # noqa: E402
 from repro_torch.kernels.ssd.ref import ssd_ref  # noqa: E402
-from repro_torch.models import api, layers, ssm, transformer  # noqa: E402
+from repro_torch.models import (api, encdec, layers, moe, recurrent, ssm,  # noqa: E402
+                                transformer)
 from repro_torch.models.cnn import (HybridPlan, forward, hybrid_forward,  # noqa: E402
                                     init_vgg)
 from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.serve.quant import (dequantize_params, quantize_params,  # noqa: E402
+                                     storage_bytes)
 from repro_torch.serve.scheduler import ContinuousBatcher, Request  # noqa: E402
+from repro_torch.train.hybrid import HybridLMPlan, hybrid_lm_forward  # noqa: E402
 from repro_torch.train.steps import build_step, cast_bf16  # noqa: E402
 from repro_torch.train.trainer import TrainConfig, Trainer  # noqa: E402
 
@@ -674,9 +730,7 @@ def counts() -> dict:
 
 def n_params(params) -> int:
     """The real parameter count: the sum of numel over the weight tree."""
-    if isinstance(params, dict):
-        return sum(n_params(v) for v in params.values())
-    return params.numel()
+    return sum(t.numel() for t in tree.leaves(params))
 
 
 def randn(shape, dtype, gen, scale: float = 1.0):
@@ -1094,10 +1148,8 @@ def phase_g(gen) -> dict:
     return {"ssd": rows, **lm_kernel_rows(cfg, gen, "G")}
 
 
-def cast_tree(tree, dtype):
-    if isinstance(tree, dict):
-        return {k: cast_tree(v, dtype) for k, v in tree.items()}
-    return tree.to(dtype)
+def cast_tree(params, dtype):
+    return tree.map_tree(lambda t: t.to(dtype), params)
 
 
 def run_blocks(blocks, x) -> tuple[list, tuple, tuple]:
@@ -1664,6 +1716,538 @@ def phase_l() -> None:
           f"checkpoint restored bit-equal ({len(flat)} leaves)")
 
 
+# ---------------------------------------------------------------------------
+# The rest of the model zoo (phases M-P)
+# ---------------------------------------------------------------------------
+
+XLSTM_ARCH, WHISPER_ARCH, MOE_ARCH = "xlstm-350m", "whisper-base", "kimi-k2-1t-a32b"
+HYBRID_LM_PLAN = HybridLMPlan(sp=8, n_stages=4, n_micro=4)
+WHISPER_BATCH, WHISPER_TOKENS = 4, 448  # Whisper's decoder context (arXiv:2212.04356)
+MOE_LAYERS = 1  # of Kimi-K2's 61: one layer's 384 experts are 33.8 GB in bf16
+MOE_SLOTS, MOE_TICKS, MOE_MAX_SEQ = 4, 8, 64
+TOPK_AGREE = 0.99  # Kimi-K2: tokens whose top-k sets agree across the routes
+QUANT_SLACK = 1e-5  # fp32 rounding of w / scale and q * scale, in scales
+ZOO_SEED = 19  # phases M-P draw from generators of their own
+
+
+def zoo_gen(phase: str) -> torch.Generator:
+    return torch.Generator(device="cuda").manual_seed(ZOO_SEED + "MNOP".index(phase))
+
+
+def timed_counted(fn, reps: int = 1):
+    """(the last fn(), the launches of that call by kernel and by matmul and
+    flash route, the median wall in ms of ``reps`` calls, each ending in a
+    synchronize)."""
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    got = counts()
+    got["matmul_routes"] = dict(matmul.launches_by_route)
+    got["flash_attention_routes"] = dict(flash_attention.launches_by_route)
+    return out, got, statistics.median(walls)
+
+
+def check_launches(where: str, got: dict, matmul_routes: dict, rms: int, flash: int = 0,
+                   flash_route: str = "wgmma") -> None:
+    """Exactly these launches: matmul by route, RMSNorm, flash on one route, no SSD."""
+    want = {"matmul": sum(matmul_routes.values()), "rmsnorm": rms, "flash_attention": flash,
+            "ssd": 0}
+    check({k: got[k] for k in want} == want, f"{where}: launches {got}, expected {want}")
+    mm = {r: matmul_routes.get(r, 0) for r in ROUTE_NAMES}
+    check(got["matmul_routes"] == mm, f"{where}: matmul routes {got['matmul_routes']}, "
+          f"expected {mm}")
+    fl = {r: flash if r == flash_route else 0 for r in ROUTE_NAMES}
+    check(got["flash_attention_routes"] == fl, f"{where}: flash routes "
+          f"{got['flash_attention_routes']}, expected {fl}")
+
+
+def on_route(dtype, n: int, simt: int = 0) -> dict:
+    """``n`` products, ``simt`` of them on simt whatever the dtype (an N that
+    is not a multiple of 8), the rest on the dtype's route."""
+    if dtype == torch.float32:
+        return {"simt": n}
+    return {"wgmma": n - simt, "simt": simt}
+
+
+def peak_gb() -> float:
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def path_entry(got: dict) -> dict:
+    return {"matmul": {"launches": got["matmul"], "launches_by_route": got["matmul_routes"]},
+            "rmsnorm": {"launches": got["rmsnorm"]},
+            "flash_attention": {"launches": got["flash_attention"],
+                                "launches_by_route": got["flash_attention_routes"]}}
+
+
+def quant_bytes(t: torch.Tensor) -> int:
+    """Bytes of a leaf after quantize_params: int8 values and one fp32 scale a
+    column for a floating leaf of two or more axes; the leaf itself otherwise."""
+    if t.dim() >= 2 and t.is_floating_point():
+        return t.numel() + 4 * t.shape[-1]
+    return t.numel() * t.element_size()
+
+
+def phase_m() -> dict:
+    """StarCoder2-3B at full width and depth, bf16, 4 x 512: the hybrid LM plan
+    (sp 8, 4 stages, 4 microbatches) pipelined on the kernel route against
+    api.prefill_logits on the kernel route; then int8 weight-only
+    quantization of the same weights."""
+    gen, cfg, plan = zoo_gen("M"), get_config(LM_ARCH), HYBRID_LM_PLAN
+    torch.cuda.reset_peak_memory_stats()
+    params = transformer.init_lm(cfg, generator=gen, device="cuda", dtype=torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_BATCH, PREFILL_SEQ), generator=gen,
+                           device="cuda")
+    want = expected_launches(cfg)
+    per_block = (want["matmul"] - 1) // cfg.n_layers
+    # the one-device GPipe calls every head stage at each of n_micro + n_stages - 1 ticks
+    calls = (plan.n_micro + plan.n_stages - 1) * plan.sp + cfg.n_layers - plan.sp
+    with torch.inference_mode():
+        ref, got_ref, ref_ms = timed_counted(
+            lambda: api.prefill_logits(params, cfg, {"tokens": tokens}), reps=3)
+        check_launches("M prefill", got_ref, {"wgmma": want["matmul"]}, want["rmsnorm"],
+                       want["flash_attention"])
+        seq, got_seq, seq_ms = timed_counted(
+            lambda: hybrid_lm_forward(params, cfg, tokens, plan), reps=3)
+        check_launches("M sequential plan", got_seq, {"wgmma": want["matmul"]}, want["rmsnorm"],
+                       want["flash_attention"])
+        out, got, pipe_ms = timed_counted(
+            lambda: hybrid_lm_forward(params, cfg, tokens, plan, pipelined=True), reps=3)
+        check_launches("M pipelined plan", got, {"wgmma": calls * per_block + 1}, 2 * calls + 1,
+                       calls)
+        plain = hybrid_lm_forward(params, cfg, tokens, plan, pipelined=True, use_kernel=False)
+    check(tuple(out.shape) == (PREFILL_BATCH, PREFILL_SEQ, cfg.vocab), f"shape {out.shape}")
+    e_seq, e_pipe = normalised_err(seq, ref), normalised_err(out, ref)
+    e_plain = normalised_err(out, plain)
+    check(e_seq <= SAME, f"M: the sequential plan differs from api.prefill_logits by {e_seq:.3e}")
+    check(e_pipe <= TOL[torch.bfloat16] and e_plain <= TOL[torch.bfloat16],
+          f"M: pipelined kernel route against api.prefill_logits {e_pipe:.3e}, against its "
+          f"plain route {e_plain:.3e}")
+    n_tok = PREFILL_BATCH * PREFILL_SEQ
+    print(f"M bfloat16 {LM_ARCH} hybrid plan sp={plan.sp} stages={plan.n_stages} "
+          f"micro={plan.n_micro} B={PREFILL_BATCH} S={PREFILL_SEQ}: pipelined kernel route "
+          f"against api.prefill_logits {e_pipe:.3e}, against the pipelined plain route "
+          f"{e_plain:.3e}; sequential plan {e_seq:.3e}  launches {got} ({calls} block calls: "
+          f"{plan.n_micro + plan.n_stages - 1} ticks x {plan.sp} head blocks + "
+          f"{cfg.n_layers - plan.sp} tail; the prefill's {want})")
+    print(f"M bfloat16 walls: prefill {ref_ms:.3f} ms ({n_tok / ref_ms * 1e3:.1f} tokens/s), "
+          f"sequential plan {seq_ms:.3f} ms, pipelined plan {pipe_ms:.3f} ms "
+          f"({n_tok / pipe_ms * 1e3:.1f} tokens/s) (medians of 3)")
+    del seq, plain, out
+
+    q = quantize_params(params)
+    before, after = storage_bytes(params), storage_bytes(q)
+    expect = sum(quant_bytes(t) for t in tree.leaves(params))
+    check(after == expect, f"M: quantized storage {after} B, expected {expect} B")
+    worst = []
+
+    def half_scale(w, node):
+        if not isinstance(node, dict):
+            check(node is w, "M: a leaf that stays as it is was replaced")
+            return
+        d = dequantize_params({"w": node}, torch.float32)["w"]
+        ratio = ((d - w.float()).abs() / node["scale"]).max().item()
+        check(ratio <= 0.5 + QUANT_SLACK, f"M: a dequantized weight {ratio:.6f} scales from "
+              f"its original")
+        worst.append(ratio)
+
+    tree.map_tree(half_scale, params, q)
+    deq = dequantize_params(q)
+    with torch.inference_mode():
+        qlogits, got_q, q_ms = timed_counted(
+            lambda: api.prefill_logits(deq, cfg, {"tokens": tokens}))
+        check_launches("M dequantized prefill", got_q, {"wgmma": want["matmul"]},
+                       want["rmsnorm"], want["flash_attention"])
+    agree = (qlogits.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    print(f"M int8 weight-only: storage {before} B -> {after} B ({before / after:.4f}x; "
+          f"{expect} B expected from the leaf shapes), every dequantized weight within "
+          f"{max(worst):.6f} scales of the original ({len(worst)} quantized leaves); the "
+          f"dequantized bf16 prefill (not gated): logits {normalised_err(qlogits, ref):.3e} "
+          f"from the unquantized, top-1 agreement {agree:.4f}, wall {q_ms:.3f} ms; "
+          f"peak memory {peak_gb():.2f} GB")
+    del params, q, deq, qlogits, ref
+    return {f"{LM_ARCH} hybrid plan": path_entry(got)}
+
+
+def xlstm_launches(cfg, seq: int, dtype) -> tuple[dict, int]:
+    """(matmul launches by route, RMSNorm launches) of one xLSTM forward over
+    ``seq`` tokens (1: a decode tick): 6 products an mLSTM block (wi and wf
+    have N = n_heads, not a multiple of 8: simt), 1 + seq an sLSTM block
+    (its recurrent product at every step), the head; 2 norms a block and ln_f."""
+    n_s = sum(recurrent._is_slstm(cfg, i) for i in range(cfg.n_layers))
+    n_m = cfg.n_layers - n_s
+    return on_route(dtype, 6 * n_m + (1 + seq) * n_s + 1, 2 * n_m), 2 * cfg.n_layers + 1
+
+
+def block_name(bp, i: int) -> str:
+    return f"{'sLSTM' if 'kind_slstm' in bp else 'mLSTM'} {i}"
+
+
+def xlstm_blocks(params, cfg) -> list:
+    """recurrent.xlstm_forward after the embedding, block by block, the head last."""
+    blocks = [(block_name(bp, i), lambda h, uk, bp=bp: (
+        recurrent.xlstm_block(h, bp, cfg, use_kernel=uk),))
+        for i, bp in enumerate(params["blocks"])]
+    blocks.append(("head", lambda h, uk: (layers.linear(
+        layers.rms_norm(h, params["ln_f"], use_kernel=uk), params["lm_head"], uk).float(),)))
+    return blocks
+
+
+def xlstm_decode_blocks(params, cfg, cache) -> list:
+    """One recurrent.xlstm_decode_step after the embedding, block by block:
+    (output, *the block's new states in the cache's key order), the head last."""
+    def block(h, uk, bp, cc):
+        x = layers.rms_norm(h, bp["ln"], use_kernel=uk)
+        if "kind_mlstm" in bp:
+            y, *state = ssm.mlstm_decode(x, bp["kind_mlstm"], cfg.n_heads, cc["c"], cc["n"],
+                                         cc["m"], use_kernel=uk)
+        else:
+            y, *state = ssm.slstm_apply(x, bp["kind_slstm"], cc["h"], cc["c"], use_kernel=uk)
+        return (h + y, *state)
+
+    blocks = [(block_name(bp, i), lambda h, uk, bp=bp, cc=cc: block(h, uk, bp, cc))
+              for i, (bp, cc) in enumerate(zip(params["blocks"], cache))]
+    blocks.append(("head", lambda h, uk: (layers.linear(
+        layers.rms_norm(h, params["ln_f"], use_kernel=uk)[:, 0], params["lm_head"],
+        uk).float(),)))
+    return blocks
+
+
+def xlstm_decode_errors(params, cfg, cache, toks, step, plain) -> tuple[list, float]:
+    """Every block of one xLSTM decode step, both routes fed the same input and
+    state, and both chains against api.decode_step's (logits, new cache)."""
+    errs, *chains = run_blocks(xlstm_decode_blocks(params, cfg, cache),
+                               params["embed"][toks].to(torch.bfloat16))
+    pairs = []
+    for (x, lines), (logits, new) in zip(chains, (step, plain)):
+        pairs.append((x, logits))
+        for i, (bp, states) in enumerate(zip(params["blocks"], new)):
+            pairs += list(zip(lines[block_name(bp, i)], states.values()))
+    return errs, max(normalised_err(a, b) for a, b in pairs)
+
+
+def phase_n() -> dict:
+    """xLSTM-350M at full width and depth: prefill 4 x 512 in bf16 and fp32,
+    every block held kernel route against plain route on the same input;
+    then ContinuousBatcher serving 8 requests on 4 slots."""
+    gen, cfg = zoo_gen("N"), get_config(XLSTM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init_params(cfg, generator=gen, device="cuda", dtype=torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_BATCH, PREFILL_SEQ), generator=gen,
+                           device="cuda")
+    n_tok, numel = PREFILL_BATCH * PREFILL_SEQ, n_params(params)
+    paths = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        p = params if dtype == torch.bfloat16 else cast_tree(params, dtype)
+        mm, rms = xlstm_launches(cfg, PREFILL_SEQ, dtype)
+        with torch.inference_mode():
+            logits, got, wall = timed_counted(
+                lambda: api.prefill_logits(p, cfg, {"tokens": tokens}, compute_dtype=dtype),
+                reps=3 if dtype == torch.bfloat16 else 1)
+            check_launches(f"N {name_of(dtype)} prefill", got, mm, rms)
+            plain = api.prefill_logits(p, cfg, {"tokens": tokens}, compute_dtype=dtype,
+                                       use_kernel=False)
+            errs, (xk, _), (xp, _) = run_blocks(xlstm_blocks(p, cfg),
+                                                p["embed"][tokens].to(dtype))
+            chain = max(normalised_err(xk, logits), normalised_err(xp, plain))
+            e2e = normalised_err(logits, plain)
+        check(tuple(logits.shape) == (PREFILL_BATCH, PREFILL_SEQ, cfg.vocab),
+              f"logits {tuple(logits.shape)}")
+        worst = max(errs, key=lambda t: t[1])
+        print(f"N {name_of(dtype):8s} {XLSTM_ARCH} prefill B={PREFILL_BATCH} S={PREFILL_SEQ} "
+              f"({cfg.n_layers} blocks, {numel / 1e6:.3f} M params; cfg.param_count() says "
+              f"{cfg.param_count() / 1e6:.3f} M): launches {got}  wall {wall:.3f} ms "
+              f"({n_tok / wall * 1e3:.1f} tokens/s)  every block and the head, same input: max "
+              f"{worst[1]:.3e} ({worst[0]}); the blocks chained against api.prefill_logits "
+              f"{chain:.3e}; end to end kernel vs plain (not gated) {e2e:.3e}")
+        check(chain <= SAME, f"N: the blocks chained differ from api.prefill_logits by {chain:.3e}")
+        check(worst[1] <= TOL[dtype], f"N {name_of(dtype)}: block {worst[0]} kernel vs plain "
+              f"{worst[1]:.3e}")
+        if dtype == torch.bfloat16:
+            paths[f"{XLSTM_ARCH} prefill"] = path_entry(got)
+        del p, logits, plain, xk, xp
+
+    reqs = serving_requests(cfg)
+    mm, rms = xlstm_launches(cfg, 1, torch.bfloat16)
+    b = ContinuousBatcher(cfg, params, slots=SLOTS, max_seq=MAX_SEQ, device="cuda")
+    for r in reqs:
+        b.submit(r)
+    fresh = api.init_cache(cfg, 1, 1, device="cuda")
+    ticks, reused, block_err, chain_err, tick_got = [], 0, ("none", 0.0), 0.0, None
+    while True:
+        b._admit()
+        for slot, st in enumerate(b.active):  # a reused slot starts from the initial state
+            if st is not None and b.steps > 0 and st["start_step"] == b.steps:
+                reused += 1
+                check(all(torch.equal(states[k][slot], init[k][0])
+                          for states, init in zip(b.cache, fresh) for k in states),
+                      f"N: slot {slot}, admitted at tick {b.steps}, starts from a used state")
+        if b.steps < 4:  # every block of the kernel decode step against the plain one
+            toks, pos = b._gather_inputs()
+            with torch.inference_mode():
+                step = api.decode_step(params, cfg, b.cache, toks, pos)
+                plain = api.decode_step(params, cfg, b.cache, toks, pos, use_kernel=False)
+                errs, chained = xlstm_decode_errors(params, cfg, b.cache, toks, step, plain)
+            check(chained <= SAME, f"N decode tick {b.steps}: the blocks chained differ from "
+                  f"api.decode_step by {chained:.3e}")
+            chain_err = max(chain_err, chained)
+            worst = max(errs, key=lambda t: t[1])
+            check(worst[1] <= TOL[torch.bfloat16], f"N decode tick {b.steps}: block {worst[0]} "
+                  f"kernel vs plain {worst[1]:.3e}")
+            block_err = max(block_err, worst, key=lambda t: t[1])
+            del step, plain
+        more, got_t, wall = timed_counted(b.step)
+        if not more:  # the tick's argmax reaches the host, so a step ends on the device
+            break
+        ticks.append(wall)
+        tick_got = got_t
+        check_launches(f"N tick {b.steps}", tick_got, mm, rms)
+    done = {c.rid: c for c in b.done}
+    check(sorted(done) == [r.rid for r in reqs], f"N completed {sorted(done)}")
+    check(reused == N_REQUESTS - SLOTS, f"N: {reused} reused slots, expected "
+          f"{N_REQUESTS - SLOTS}")
+    plain_b = ContinuousBatcher(cfg, params, slots=SLOTS, max_seq=MAX_SEQ, device="cuda",
+                                use_kernel=False)
+    for r in reqs:
+        plain_b.submit(r)
+    plain_b.run()
+    check((plain_b.steps, plain_b.utilization) == (b.steps, b.utilization),
+          f"N steps/utilization {b.steps}/{b.utilization} vs plain "
+          f"{plain_b.steps}/{plain_b.utilization}")
+    generated, wall = sum(r.max_new for r in reqs), sum(ticks)
+    print(f"N bfloat16 {XLSTM_ARCH} serving {N_REQUESTS} requests on {SLOTS} slots: {b.steps} "
+          f"ticks  utilization {b.utilization:.4f}  launches per tick {tick_got}  {reused} "
+          f"slots reused, each from the initial state (m = -1e30)  decode vs plain on ticks "
+          f"0-3, every block fed the same input and state: max {block_err[1]:.3e} "
+          f"({block_err[0]}), the blocks chained against api.decode_step {chain_err:.3e}")
+    print(f"N bfloat16 tick {statistics.median(ticks):.3f} ms (median); {generated} generated "
+          f"tokens in {wall:.1f} ms = {generated / wall * 1e3:.1f} generated tokens/s; peak "
+          f"memory {peak_gb():.2f} GB")
+    paths[f"{XLSTM_ARCH} decode tick"] = path_entry(tick_got)
+    del params, b, plain_b
+    return paths
+
+
+def phase_o() -> dict:
+    """Whisper-base at full width and depth: encode 4 x 1500 frames and the
+    teacher-forced decoder over 4 x 448 tokens, kernel route against plain
+    route, bf16 and fp32; then prefill_cross + 448 decode steps against the
+    teacher-forced logits at the last position."""
+    gen, cfg = zoo_gen("O"), get_config(WHISPER_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init_params(cfg, generator=gen, device="cuda", dtype=torch.bfloat16)
+    frames = torch.randn((WHISPER_BATCH, cfg.n_audio_frames, cfg.d_model), generator=gen,
+                         device="cuda")
+    tokens = torch.randint(0, cfg.vocab, (WHISPER_BATCH, WHISPER_TOKENS), generator=gen,
+                           device="cuda")
+    le, ld = cfg.n_enc_layers, cfg.n_layers
+    head_simt = int(cfg.vocab % 8 != 0)  # the tied head embed.T: N = 51865 takes simt
+    paths = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        p = params if dtype == torch.bfloat16 else cast_tree(params, dtype)
+        fr = expected_flash_route(dtype)
+        with torch.inference_mode():
+            mem, got_e, enc_ms = timed_counted(
+                lambda: encdec.encode(p, cfg, frames, compute_dtype=dtype), reps=3)
+            check_launches(f"O {name_of(dtype)} encode", got_e, on_route(dtype, 6 * le), 0, le,
+                           fr)
+            e_enc = normalised_err(mem, encdec.encode(p, cfg, frames, compute_dtype=dtype,
+                                                      use_kernel=False))
+            logits, got_d, dec_ms = timed_counted(
+                lambda: encdec.decode_train(p, cfg, tokens, mem, compute_dtype=dtype), reps=3)
+            check_launches(f"O {name_of(dtype)} decode_train", got_d,
+                           on_route(dtype, 10 * ld + 1, head_simt), 0, 2 * ld, fr)
+            e_dec = normalised_err(logits, encdec.decode_train(
+                p, cfg, tokens, mem, compute_dtype=dtype, use_kernel=False))
+            cache, got_x, _ = timed_counted(lambda: encdec.prefill_cross(
+                p, cfg, mem, api.init_cache(cfg, WHISPER_BATCH, WHISPER_TOKENS, dtype,
+                                            device="cuda")))
+            check_launches(f"O {name_of(dtype)} prefill_cross", got_x, on_route(dtype, 2 * ld), 0)
+
+            def steps(cache=cache, p=p, dtype=dtype):
+                for t in range(WHISPER_TOKENS):
+                    last, cache = api.decode_step(p, cfg, cache, tokens[:, t:t + 1],
+                                                  torch.full((WHISPER_BATCH,), t, device="cuda"),
+                                                  compute_dtype=dtype)
+                return last, cache
+
+            (last, cache), got_s, steps_ms = timed_counted(steps)
+            step_ms = steps_ms / WHISPER_TOKENS
+            per_step = on_route(dtype, 8 * ld + 1, head_simt)
+            check_launches(f"O {name_of(dtype)} {WHISPER_TOKENS} decode steps", got_s,
+                           {r: n * WHISPER_TOKENS for r, n in per_step.items()}, 0)
+            # the launches of one step, read from the counters of the 448
+            got_step = {k: ({r: n // WHISPER_TOKENS for r, n in v.items()} if isinstance(v, dict)
+                            else v // WHISPER_TOKENS) for k, v in got_s.items()}
+            e_inc = normalised_err(last, logits[:, -1])
+        tol = TOL[dtype]
+        frames_n, toks_n = WHISPER_BATCH * cfg.n_audio_frames, WHISPER_BATCH * WHISPER_TOKENS
+        print(f"O {name_of(dtype):8s} {WHISPER_ARCH} ({le} + {ld} layers, "
+              f"{n_params(p) / 1e6:.3f} M params) B={WHISPER_BATCH}: encode {cfg.n_audio_frames} "
+              f"frames kernel vs plain {e_enc:.3e}, {enc_ms:.3f} ms ({frames_n / enc_ms * 1e3:.1f} "
+              f"frames/s), launches {got_e}; decode_train S={WHISPER_TOKENS} kernel vs plain "
+              f"{e_dec:.3e}, {dec_ms:.3f} ms ({toks_n / dec_ms * 1e3:.1f} tokens/s), launches "
+              f"{got_d}; prefill_cross + {WHISPER_TOKENS} decode steps ({step_ms:.3f} ms a step, "
+              f"{WHISPER_BATCH / step_ms * 1e3:.1f} tokens/s; launches a step {got_step}) "
+              f"last logits against decode_train's at the last position {e_inc:.3e}")
+        check(max(e_enc, e_dec, e_inc) <= tol, f"O {name_of(dtype)}: encode {e_enc:.3e}, "
+              f"decode_train {e_dec:.3e}, incremental decode {e_inc:.3e} (tolerance {tol})")
+        if dtype == torch.bfloat16:
+            paths[f"{WHISPER_ARCH} encode"] = path_entry(got_e)
+            paths[f"{WHISPER_ARCH} decode_train"] = path_entry(got_d)
+            paths[f"{WHISPER_ARCH} decode step"] = path_entry(got_step)
+        del p, mem, logits, cache, last
+    print(f"O peak memory {peak_gb():.2f} GB")
+    del params
+    return paths
+
+
+def moe_agreement(h, mp, cfg) -> tuple:
+    """The MoE layer on both routes fed the same input h (B, S, d): (router
+    logits error, share of tokens whose top-k sets agree, the layer output's
+    error on the tokens whose sets agree and whose kept assignments agree
+    expert by expert, those tokens, dropped assignments on each route, the
+    kernel route's (y, host ms of the call, wall ms))."""
+    xf = h.reshape(-1, h.shape[-1])
+    k, t = cfg.moe.top_k, xf.shape[0]
+    lk, _, _, ik = moe.route(xf, mp["router"], cfg, use_kernel=True)
+    lp, _, _, ip = moe.route(xf, mp["router"], cfg, use_kernel=False)
+    (ek, ok), (ep, op) = ik.sort(-1), ip.sort(-1)
+    same = (ek == ep).all(-1)
+    # each token's kept flags in expert order: (T, k)
+    kept_k = moe.dispatch(ik, cfg)[2].reshape(k, t).t().gather(1, ok)
+    kept_p = moe.dispatch(ip, cfg)[2].reshape(k, t).t().gather(1, op)
+    mask = same & (kept_k == kept_p).all(-1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    yk, _, drop_k = moe.moe_mlp(h, mp, cfg, use_kernel=True)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    yp, _, drop_p = moe.moe_mlp(h, mp, cfg, use_kernel=False)
+    e_y = normalised_err(yk.reshape(t, -1)[mask], yp.reshape(t, -1)[mask])
+    return (normalised_err(lk, lp), same.float().mean().item(), e_y, int(mask.sum()),
+            int(drop_k), int(drop_p), (yk, host_ms, wall_ms))
+
+
+def moe_layer_gate(where: str, attention, x, params, bp, cfg) -> dict:
+    """One MoE layer and the head, each part held kernel route against plain
+    route on the same input: ``attention(x, uk)`` is the residual after the
+    block's attention on route uk; the MoE layer and the head then take the
+    plain route's. Gated: attention, router logits and head within the bf16
+    tolerance, top-k sets agreeing on TOPK_AGREE of the tokens, the MoE
+    output within the tolerance on the tokens whose sets and kept
+    assignments agree."""
+    tol = TOL[torch.bfloat16]
+    xa = attention(x, False)
+    e_attn = normalised_err(attention(x, True), xa)
+    h = layers.rms_norm(xa, bp["ln2"])
+    e_router, agree, e_y, n_same, drop_k, drop_p, (_, host_ms, moe_ms) = moe_agreement(
+        h, bp["moe"], cfg)
+    hf = layers.rms_norm(xa + moe.moe_mlp(h, bp["moe"], cfg)[0], params["ln_f"])
+    e_head = normalised_err(layers.linear(hf, params["lm_head"], True),
+                            layers.linear(hf, params["lm_head"], False))
+    t = h.shape[0] * h.shape[1]
+    print(f"{where}, same input, kernel vs plain (capacity {moe.capacity(t, cfg)}): attention "
+          f"{e_attn:.3e}, router logits {e_router:.3e}, top-k sets agree on {agree:.4f} of {t} "
+          f"tokens, MoE output on the {n_same} tokens whose sets and kept assignments agree "
+          f"{e_y:.3e}, head {e_head:.3e}; dropped assignments: kernel route {drop_k}, plain "
+          f"route {drop_p} of {t * cfg.moe.top_k}; the MoE layer on the kernel route: "
+          f"{3 * cfg.moe.n_experts} expert launches, host {host_ms:.1f} ms to queue the call "
+          f"({host_ms / cfg.moe.n_experts * 1e3:.1f} us an expert), {moe_ms:.1f} ms to its end")
+    check(e_attn <= tol and e_router <= tol and e_head <= tol,
+          f"{where}: attention {e_attn:.3e}, router {e_router:.3e}, head {e_head:.3e}")
+    check(agree >= TOPK_AGREE, f"{where}: top-k sets agree on {agree:.4f} of the tokens")
+    check(n_same > 0 and e_y <= tol, f"{where}: MoE output on {n_same} agreeing tokens {e_y:.3e}")
+    return {"host_ms": host_ms, "moe_ms": moe_ms}
+
+
+def phase_p() -> dict:
+    """Kimi-K2 at full width, depth cut to MOE_LAYERS: prefill 4 x 512 and
+    4-slot decode ticks through every expert on the kernel route; at the
+    prefill and at decode tick 0 the attention, the MoE layer (router logits,
+    top-k sets, output) and the head held to the plain route on the same
+    input."""
+    gen, full = zoo_gen("P"), get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    e = cfg.moe
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, generator=gen, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_BATCH, PREFILL_SEQ), generator=gen,
+                           device="cuda")
+    per_layer = 4 + 1 + 3 * e.n_experts + 3  # attention, router, experts, shared expert
+    router_simt = int(e.n_experts % 8 != 0)  # 384 experts: the router's N takes wgmma
+    mm = on_route(torch.bfloat16, per_layer * cfg.n_layers + 1, router_simt * cfg.n_layers)
+    rms = 2 * cfg.n_layers + 1
+    t = PREFILL_BATCH * PREFILL_SEQ
+    bp = transformer.layer(params["blocks"], 0)
+    with torch.inference_mode():
+        logits, got, wall = timed_counted(
+            lambda: api.prefill_logits(params, cfg, {"tokens": tokens}), reps=3)
+        check_launches("P prefill", got, mm, rms, cfg.n_layers)
+        e2e = normalised_err(logits, api.prefill_logits(params, cfg, {"tokens": tokens},
+                                                        use_kernel=False))
+
+        def attention(h, uk):
+            return h + layers.gqa_attention(
+                layers.rms_norm(h, bp["ln1"], use_kernel=uk), bp["attn"], cfg.n_heads,
+                cfg.n_kv, rope=cfg.rope, rope_theta=cfg.rope_theta,
+                attn_fn=flash_attn_fn if uk else None, use_kernel=uk)
+
+        print(f"P bfloat16 {MOE_ARCH} at full width, {cfg.n_layers} of {full.n_layers} layers "
+              f"({n_params(params) / 1e9:.3f} B params, drawn in {init_s:.1f} s) prefill "
+              f"B={PREFILL_BATCH} S={PREFILL_SEQ}: launches {got}  wall {wall:.3f} ms "
+              f"({t / wall * 1e3:.1f} tokens/s)  end to end kernel vs plain (not gated) "
+              f"{e2e:.3e}")
+        moe_layer_gate("P prefill", attention, params["embed"][tokens].to(torch.bfloat16),
+                       params, bp, cfg)
+    del logits
+
+    cache = api.init_cache(cfg, MOE_SLOTS, MOE_MAX_SEQ, device="cuda")
+    toks = torch.randint(0, cfg.vocab, (MOE_SLOTS, MOE_TICKS), generator=gen, device="cuda")
+    tick_ms = []
+    with torch.inference_mode():
+        for i in range(MOE_TICKS):
+            pos = torch.full((MOE_SLOTS,), i, device="cuda")
+            if i == 0:  # every part of the tick on both routes, fed the same input and cache
+                plain, _ = api.decode_step(params, cfg, cache, toks[:, :1], pos, use_kernel=False)
+
+                def decode_attention(h, uk, cache=cache, pos=pos):
+                    return h + layers.gqa_decode_attention(
+                        layers.rms_norm(h, bp["ln1"], use_kernel=uk), bp["attn"], cfg.n_heads,
+                        cfg.n_kv, cache["k"][0], cache["v"][0], pos, rope=cfg.rope,
+                        rope_theta=cfg.rope_theta, use_kernel=uk)[0]
+
+                moe_layer_gate("P decode tick 0", decode_attention,
+                               params["embed"][toks[:, :1]].to(torch.bfloat16), params, bp, cfg)
+            (step, cache), tick_got, ms = timed_counted(
+                lambda: api.decode_step(params, cfg, cache, toks[:, i:i + 1], pos))
+            check_launches(f"P tick {i}", tick_got, mm, rms)
+            check(bool(torch.isfinite(step).all()), f"P tick {i}: non-finite logits")
+            if i == 0:
+                e_tick = normalised_err(step, plain)
+            else:
+                tick_ms.append(ms)
+    bound = 3 * e.n_experts * cfg.d_model * e.d_ff_expert * 2 / HBM_BYTES_PER_S * 1e3
+    print(f"P bfloat16 decode {MOE_SLOTS} slots (capacity {moe.capacity(MOE_SLOTS, cfg)}), "
+          f"{MOE_TICKS} ticks: launches per tick {tick_got}  tick {statistics.median(tick_ms):.3f} "
+          f"ms (median of ticks 1-{MOE_TICKS - 1}; reading every expert's weights once takes "
+          f"at least {bound:.3f} ms)  {MOE_SLOTS / statistics.median(tick_ms) * 1e3:.1f} "
+          f"tokens/s; tick 0 end to end kernel vs plain logits (not gated) {e_tick:.3e}; peak "
+          f"memory {peak_gb():.2f} GB")
+    del params, cache, bp
+    return {f"{MOE_ARCH} prefill": path_entry(got), f"{MOE_ARCH} decode tick":
+            path_entry(tick_got)}
+
+
 def matmul_floors(rows, hybrid_rows) -> None:
     """The redesigned matmul against torch.matmul in this run, bf16: the
     prefill sum of single calls at most 4x torch.matmul's, the decode tick's
@@ -1805,6 +2389,12 @@ def main() -> int:
         phase()
         torch.cuda.empty_cache()
         print(f"{name} wall {time.perf_counter() - t0:.1f} s")
+    zoo = {}
+    for name, phase in (("M", phase_m), ("N", phase_n), ("O", phase_o), ("P", phase_p)):
+        t0 = time.perf_counter()
+        zoo.update(phase())
+        torch.cuda.empty_cache()
+        print(f"{name} wall {time.perf_counter() - t0:.1f} s")
 
     conv_floor(rows)
     matmul_floors(lm_rows, hybrid_rows)
@@ -1815,9 +2405,14 @@ def main() -> int:
              **vgg_forward_summary(rows[torch.float32]),
              "bfloat16": {**launches[torch.bfloat16],
                           **vgg_forward_summary(rows[torch.bfloat16])}}
-    print(json.dumps({"kernels": [entry, *lm_entries(lm_rows, prefill_launches, serving,
-                                                     hybrid_rows, hybrid_launches,
-                                                     hybrid_serving)]}))
+    entries = lm_entries(lm_rows, prefill_launches, serving, hybrid_rows, hybrid_launches,
+                         hybrid_serving)
+    for e in entries:  # the launches of phases M-P, path by path, on the kernels they ran
+        paths = {path: by[e["name"]] for path, by in zoo.items()
+                 if by.get(e["name"], {}).get("launches")}
+        if paths:
+            e["paths"] = paths
+    print(json.dumps({"kernels": [entry, *entries]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

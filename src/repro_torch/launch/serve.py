@@ -7,7 +7,11 @@ tokens with the KV-cache serve step, on the card.
 The counterpart of ``repro/launch/serve.py``, with its flags as they are:
 ``--reduced`` is ``store_true`` with ``default=True``, so the CLI always
 serves the reduced config (the reference's fault, ROADMAP.md queue 3).
-``--device cpu`` runs the plain versions on the CPU.
+``--device cpu`` runs the plain versions on the CPU. Every architecture of
+the registry is served; for the audio family (Whisper) the CLI encodes
+seeded frame embeddings (the stubbed frontend's output) and fills the
+cross-attention K/V from them before decoding, which the reference's CLI
+does not (ROADMAP.md queue 3, fault 11).
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
-from repro_torch.models import api
+from repro_torch.models import api, encdec
 
 
 def main(argv=None):
@@ -44,6 +48,12 @@ def main(argv=None):
     prompts = torch.from_numpy(
         rng.integers(0, cfg.vocab, (args.batch, args.prompt_len))).to(device)
     cache = api.init_cache(cfg, args.batch, s_max, device=device)
+    if cfg.family == "audio":
+        frames = torch.from_numpy(rng.standard_normal(
+            (args.batch, cfg.n_audio_frames, cfg.d_model)).astype(np.float32)).to(device)
+        with torch.inference_mode():
+            memory = encdec.encode(params, cfg, frames)
+            cache = encdec.prefill_cross(params, cfg, memory, cache)
 
     def decode(c, t, pos):
         return api.decode_step(params, cfg, c, t, pos)

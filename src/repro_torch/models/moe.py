@@ -1,0 +1,219 @@
+"""Mixture-of-Experts decoder (llama4-maverick, kimi-k2): the dense dispatch
+on one card.
+
+The counterpart of ``repro/models/moe.py`` without its expert-parallel
+path (``_moe_mlp_ep_shardmap``, which needs a mesh of cards). Dispatch is
+the reference's scatter/gather, step for step: the router's softmax in
+fp32; the top-k by a stable descending sort, so that tied probabilities
+give the lower expert first as ``jax.lax.top_k`` does; gates renormalised
+over the k; each assignment's slot within its expert from the k-major
+flattening and a stable argsort (first choices take slots before second
+choices); a capacity of ``ceil(T k cf / E)``, at least 4; an assignment
+over capacity is dropped, its slot clipped to the last one and its token
+scaled to zero, so the scatter-add (``index_add_``) adds zeros onto a live
+slot. The load-balance aux loss counts dropped assignments too.
+
+With ``use_kernel=True`` the expert products run through the matmul
+kernel one expert at a time (3 launches an expert: up, gate, down, at M =
+capacity), and the router, attention, shared expert and head through
+``linear`` and the flash and RMSNorm kernels as in the dense LM;
+``use_kernel=False`` runs the expert products as batched ``einsum``s, as
+the reference does.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.flash_attention.ops import attn_fn as flash_attn_fn
+from .layers import (_randn, dense_init, embed_init, gqa_attention, gqa_decode_attention,
+                     init_attention, init_mlp, init_rmsnorm, linear, mlp, rms_norm, silu)
+from .transformer import _device, _stack, layer, rematted, softmax_xent, unstack
+
+
+def init_moe_mlp(generator: torch.Generator, cfg: ArchConfig, dtype=torch.float32, *,
+                 device="cpu"):
+    """Random weights from ``generator`` at the JAX initialisers' scales. The
+    expert leaves are drawn one expert at a time in fp32 and stored in
+    ``dtype``, so no whole leaf is ever held in fp32."""
+    e = cfg.moe
+    d, f = cfg.d_model, e.d_ff_expert
+
+    def experts(a, b):
+        w = torch.empty((e.n_experts, a, b), dtype=dtype, device=device)
+        for i in range(e.n_experts):
+            w[i] = _randn(generator, (a, b), device) * (1.0 / math.sqrt(a))
+        return w
+
+    p = {"router": dense_init(generator, d, e.n_experts, dtype, device=device),
+         "w_up": experts(d, f), "w_gate": experts(d, f), "w_down": experts(f, d)}
+    if e.n_shared:
+        p["shared"] = init_mlp(generator, d, e.n_shared * f, True, dtype, device=device)
+    return p
+
+
+def route(xf: torch.Tensor, router: torch.Tensor, cfg: ArchConfig, *, use_kernel: bool = False):
+    """xf (T, d) -> (router logits (T, E) fp32, probabilities, renormalised
+    gates (T, k) fp32, experts (T, k)), the k experts in descending
+    probability, ties to the lower index."""
+    logits = linear(xf, router, use_kernel).float()
+    probs = torch.softmax(logits, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, expert_idx = vals[:, :cfg.moe.top_k], idx[:, :cfg.moe.top_k]
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+    return logits, probs, gate_vals, expert_idx
+
+
+def capacity(t: int, cfg: ArchConfig) -> int:
+    """Slots per expert for ``t`` tokens."""
+    e = cfg.moe
+    return max(int(math.ceil(t * e.top_k * e.capacity_factor / e.n_experts)), 4)
+
+
+def dispatch(expert_idx: torch.Tensor, cfg: ArchConfig):
+    """The slots of the k*T assignments, k-major (all first choices, then all
+    second ones): (flat experts, slots clipped to the capacity, kept mask,
+    assignments per expert (dropped ones included), capacity)."""
+    n_exp = cfg.moe.n_experts
+    t = expert_idx.shape[0]
+    flat_e = expert_idx.t().reshape(-1)                                # (k*T,)
+    # a scatter, not bincount: bincount on a CUDA tensor waits for the device
+    counts = torch.zeros(n_exp, dtype=flat_e.dtype, device=flat_e.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    cap = capacity(t, cfg)
+    order = torch.argsort(flat_e, stable=True)
+    starts = torch.cumsum(counts, 0) - counts
+    slot_sorted = torch.arange(flat_e.shape[0], device=flat_e.device) - starts[flat_e[order]]
+    slot = torch.empty_like(slot_sorted)
+    slot[order] = slot_sorted
+    keep = slot < cap
+    return flat_e, torch.clamp(slot, 0, cap - 1), keep, counts, cap
+
+
+def _experts(buffers: torch.Tensor, p, use_kernel: bool) -> torch.Tensor:
+    """(E, C, d) token buffers -> (E, C, d): each expert's gated MLP."""
+    cd = buffers.dtype
+    if not use_kernel:
+        up = torch.einsum("ecd,edf->ecf", buffers, p["w_up"].to(cd))
+        gate = torch.einsum("ecd,edf->ecf", buffers, p["w_gate"].to(cd))
+        return torch.einsum("ecf,efd->ecd", silu(up) * gate, p["w_down"].to(cd))
+    outs = []
+    for e in range(buffers.shape[0]):
+        h = silu(linear(buffers[e], p["w_up"][e], True)) * linear(buffers[e], p["w_gate"][e], True)
+        outs.append(linear(h, p["w_down"][e], True))
+    return torch.stack(outs)
+
+
+def moe_mlp(x: torch.Tensor, p, cfg: ArchConfig, *, use_kernel: bool = False):
+    """x (B, S, d) -> (y (B, S, d), aux loss, dropped assignments (a 0-d
+    tensor, so that no call waits for the device))."""
+    e = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    cd = x.dtype
+    xf = x.reshape(t, d)
+    _, probs, gate_vals, expert_idx = route(xf, p["router"], cfg, use_kernel=use_kernel)
+    flat_e, slot, keep, counts, cap = dispatch(expert_idx, cfg)
+    # Switch-style load-balance loss: E * sum_e f_e * p_e
+    aux = e.n_experts * torch.sum(probs.mean(0) * counts.float()) / (t * e.top_k)
+
+    buf_idx = flat_e * cap + slot                                      # (k*T,)
+    xk = xf.repeat(e.top_k, 1) * keep[:, None].to(cd)
+    buffers = torch.zeros((e.n_experts * cap, d), dtype=cd, device=x.device)
+    buffers.index_add_(0, buf_idx, xk)
+    out = _experts(buffers.reshape(e.n_experts, cap, d), p, use_kernel).reshape(-1, d)
+
+    # gather back and combine with the renormalised gates
+    gates = keep.to(cd) * gate_vals.t().reshape(-1).to(cd)
+    y = (out[buf_idx] * gates[:, None]).reshape(e.top_k, t, d).sum(0)
+    if "shared" in p:
+        y = y + mlp(xf, p["shared"], "silu", use_kernel=use_kernel)
+    return y.reshape(b, s, d), aux, (~keep).sum()
+
+
+def init_block(generator: torch.Generator, cfg: ArchConfig, dtype=torch.float32, *,
+               device="cpu"):
+    return {
+        "ln1": init_rmsnorm(cfg.d_model, dtype, device=device),
+        "attn": init_attention(generator, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim,
+                               dtype, device=device),
+        "ln2": init_rmsnorm(cfg.d_model, dtype, device=device),
+        "moe": init_moe_mlp(generator, cfg, dtype, device=device),
+    }
+
+
+def init_lm(cfg: ArchConfig, *, generator: torch.Generator, device="cuda",
+            dtype=torch.float32):
+    """Random weights from ``generator`` at the JAX initialisers' scales."""
+    device = _device(device)
+    return {
+        "embed": embed_init(generator, cfg.vocab, cfg.d_model, dtype, device=device),
+        "lm_head": dense_init(generator, cfg.d_model, cfg.vocab, dtype, device=device),
+        "blocks": _stack([init_block(generator, cfg, dtype, device=device)
+                          for _ in range(cfg.n_layers)]),
+        "ln_f": init_rmsnorm(cfg.d_model, dtype, device=device),
+    }
+
+
+def block_apply(x, bp, cfg: ArchConfig, attn_fn=None, *, use_kernel: bool = False):
+    """One block of the prefill forward: (x + attention + MoE, aux loss)."""
+    x = x + gqa_attention(rms_norm(x, bp["ln1"], use_kernel=use_kernel), bp["attn"],
+                          cfg.n_heads, cfg.n_kv, rope=cfg.rope, rope_theta=cfg.rope_theta,
+                          window=cfg.window, attn_fn=attn_fn, use_kernel=use_kernel)
+    y, aux, _ = moe_mlp(rms_norm(x, bp["ln2"], use_kernel=use_kernel), bp["moe"], cfg,
+                        use_kernel=use_kernel)
+    return x + y, aux
+
+
+def forward(params, cfg: ArchConfig, tokens: torch.Tensor, *, compute_dtype=torch.bfloat16,
+            remat: str = "full", use_kernel: bool = True):
+    """tokens (B, S) integer -> (logits (B, S, vocab) fp32, mean aux loss)."""
+    x = params["embed"][tokens].to(compute_dtype)
+    attn_fn = flash_attn_fn if use_kernel else None
+    body = rematted(block_apply, remat)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for bp in unstack(params["blocks"], cfg.n_layers):
+        x, a = body(x, bp, cfg, attn_fn, use_kernel=use_kernel)
+        aux = aux + a
+    x = rms_norm(x, params["ln_f"], use_kernel=use_kernel)
+    return linear(x, params["lm_head"], use_kernel).float(), aux / cfg.n_layers
+
+
+def loss_fn(params, cfg: ArchConfig, tokens, labels, aux_weight: float = 0.01,
+            **kw) -> torch.Tensor:
+    logits, aux = forward(params, cfg, tokens, **kw)
+    return softmax_xent(logits, labels) + aux_weight * aux
+
+
+def init_cache(cfg: ArchConfig, batch: int, s_max: int, dtype=torch.bfloat16, *,
+               device="cuda"):
+    device = _device(device)
+    shape = (cfg.n_layers, batch, s_max, cfg.n_kv, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_step(params, cfg: ArchConfig, cache, tokens: torch.Tensor, pos: torch.Tensor, *,
+                compute_dtype=torch.bfloat16, use_kernel: bool = True):
+    """tokens (B, 1) integer; pos (B,) integer -> (logits (B, vocab), new cache).
+    The B tokens of a tick are routed together (capacity from T = B). The
+    cache passed in is not changed."""
+    x = params["embed"][tokens].to(compute_dtype)
+    k_new, v_new = [], []
+    for i in range(cfg.n_layers):
+        bp = layer(params["blocks"], i)
+        out, k_c, v_c = gqa_decode_attention(
+            rms_norm(x, bp["ln1"], use_kernel=use_kernel), bp["attn"], cfg.n_heads, cfg.n_kv,
+            cache["k"][i], cache["v"][i], pos, rope=cfg.rope, rope_theta=cfg.rope_theta,
+            use_kernel=use_kernel)
+        x = x + out
+        y, _, _ = moe_mlp(rms_norm(x, bp["ln2"], use_kernel=use_kernel), bp["moe"], cfg,
+                          use_kernel=use_kernel)
+        x = x + y
+        k_new.append(k_c)
+        v_new.append(v_c)
+    x = rms_norm(x, params["ln_f"], use_kernel=use_kernel)
+    logits = linear(x[:, 0], params["lm_head"], use_kernel).float()
+    return logits, {"k": torch.stack(k_new), "v": torch.stack(v_new)}

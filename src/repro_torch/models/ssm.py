@@ -1,20 +1,28 @@
-"""State-space blocks: Mamba2 (SSD).
+"""State-space and recurrent blocks: Mamba2 (SSD) and xLSTM (mLSTM + sLSTM).
 
-The counterpart of the Mamba2 part of ``repro/models/ssm.py``, function for
-function, with the same cast points: the projections run in the compute
+The counterpart of ``repro/models/ssm.py``, function for function.
+Mamba2, with the same cast points: the projections run in the compute
 dtype, the depthwise causal conv sums its shifted products in that dtype
 in tap order, ``dt`` is the softplus in fp32 of the product plus
 ``dt_bias``, ``x * dt`` and the scan are fp32, and the scan returns x's
 dtype. The chunked scan itself (``_segsum``, ``ssd_chunked``) lives in
-``repro_torch.kernels.ssd.ref`` as the oracle of the SSD kernel. Decode is O(1) per token through the recurrent state
-and runs ``ssd_decode`` in plain PyTorch, as the reference does.
+``repro_torch.kernels.ssd.ref`` as the oracle of the SSD kernel. Decode
+is O(1) per token through the recurrent state and runs ``ssd_decode`` in
+plain PyTorch, as the reference does.
+
+The xLSTM cells have no kernel in the reference: their gating, the
+chunkwise mLSTM scan with its stabilisers and the sequential sLSTM run in
+plain PyTorch with the reference's cast points (gates and scans in fp32,
+the sLSTM's hidden state in the compute dtype).
 
 ``use_kernel=True`` routes the prefill scan through the SSD kernel, every
-dense product through the matmul kernel and every RMSNorm through the
-RMSNorm kernel; ``use_kernel=False`` takes their plain versions. The
-xLSTM blocks (mLSTM, sLSTM) are not ported yet (ROADMAP.md queue 1 item 8).
+dense product (the xLSTM projections and the sLSTM's recurrent product at
+every step included) through the matmul kernel and every RMSNorm through
+the RMSNorm kernel; ``use_kernel=False`` takes their plain versions.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -126,3 +134,143 @@ def mamba2_decode(x, p, s: SSMCfg, conv_state, ssm_state, *, use_kernel: bool = 
     y = y.reshape(bsz, 1, -1)
     y = rms_norm(y, p["norm"], use_kernel=use_kernel) * silu(z)
     return linear(y, p["out_proj"], use_kernel), new_conv, new_ssm
+
+
+# ---------------------------------------------------------------------------
+# xLSTM: mLSTM (matrix memory) + sLSTM (scalar memory)
+# ---------------------------------------------------------------------------
+
+
+def init_mlstm(generator: torch.Generator, d_model: int, n_heads: int, dtype=torch.float32, *,
+               device="cpu"):
+    """Random weights from ``generator`` at the JAX initialisers' scales."""
+    def dense(n_out):
+        return dense_init(generator, d_model, n_out, dtype, device=device)
+
+    return {"wq": dense(d_model), "wk": dense(d_model), "wv": dense(d_model),
+            "wi": dense(n_heads), "wf": dense(n_heads), "wo": dense(d_model),
+            "norm": init_rmsnorm(d_model, dtype, device=device)}
+
+
+def mlstm_apply(x, p, n_heads: int, chunk: int = 256, *, use_kernel: bool = False):
+    """Chunkwise-parallel mLSTM: x (B, S, D) -> (B, S, D). Quadratic within a
+    chunk, an O(1) state (C, n, m) across chunks, the exponential gates
+    stabilised by the running maximum m as the reference does."""
+    bsz, s, d = x.shape
+    hd = d // n_heads
+    cd = x.dtype
+    f32 = torch.float32
+    q_len = min(chunk, s)
+    nc = s // q_len
+    if s % q_len:
+        raise ValueError(f"seq {s} not divisible by chunk {q_len}")
+
+    q = linear(x, p["wq"], use_kernel).reshape(bsz, s, n_heads, hd)
+    k = linear(x, p["wk"], use_kernel).reshape(bsz, s, n_heads, hd) / math.sqrt(hd)
+    v = linear(x, p["wv"], use_kernel).reshape(bsz, s, n_heads, hd)
+    i_g = linear(x, p["wi"], use_kernel).to(f32)                 # (B, S, H)
+    logf = F.logsigmoid(linear(x, p["wf"], use_kernel).to(f32))
+
+    def chunked(t):
+        return t.reshape(bsz, nc, q_len, *t.shape[2:])
+
+    qc, kc, vc = (chunked(t).to(f32) for t in (q, k, v))        # (B, NC, Q, H, hd)
+    ic, fc = chunked(i_g), chunked(logf)                        # (B, NC, Q, H)
+    cumf = torch.cumsum(fc, dim=2)
+    g_total = cumf[:, :, -1]                                    # (B, NC, H)
+
+    # intra-chunk decay D[t, j] = cumf_t - cumf_j + i_j (j <= t)
+    dmat = cumf[:, :, :, None, :] - cumf[:, :, None, :, :] + ic[:, :, None, :, :]
+    mask = torch.tril(torch.ones((q_len, q_len), dtype=torch.bool, device=x.device))
+    dmat = dmat.masked_fill(~mask[None, None, :, :, None], float("-inf"))
+    m_local = dmat.amax(dim=3)                                  # (B, NC, Q, H)
+    # the chunk's contribution to the carried state: sum_j exp(G - F_j + i_j) k v
+    s_decay = g_total[:, :, None, :] - cumf + ic                # (B, NC, Q, H)
+    m_state_local = s_decay.amax(dim=2)                         # (B, NC, H)
+
+    c_prev = torch.zeros((bsz, n_heads, hd, hd), dtype=f32, device=x.device)
+    n_prev = torch.zeros((bsz, n_heads, hd), dtype=f32, device=x.device)
+    m_prev = torch.full((bsz, n_heads), -1e30, dtype=f32, device=x.device)
+    ys = []
+    for z in range(nc):
+        qz, kz, vz, cumfz = qc[:, z], kc[:, z], vc[:, z], cumf[:, z]
+        # numerator / denominator stabilisers combine the inter and intra parts
+        m_inter = cumfz + m_prev[:, None, :]                    # (B, Q, H)
+        m_t = torch.maximum(m_local[:, z], m_inter)
+        w_inter = torch.exp(m_inter - m_t)
+        num_i = torch.einsum("bqnh,bnhp->bqnp", qz, c_prev) * w_inter[..., None]
+        den_i = torch.einsum("bqnh,bnh->bqn", qz, n_prev) * w_inter
+        wd = torch.exp(dmat[:, z] - m_t[:, :, None, :])         # (B, Q, Q, H)
+        sc = torch.einsum("bqnh,bjnh->bqjn", qz, kz) * wd
+        num = num_i + torch.einsum("bqjn,bjnp->bqnp", sc, vz)
+        den = torch.maximum(torch.abs(den_i + sc.sum(2)), torch.exp(-m_t))
+        ys.append(num / den[..., None])                         # (B, Q, H, hd)
+        # the state update
+        gz = g_total[:, z]
+        m_next = torch.maximum(gz + m_prev, m_state_local[:, z])
+        w_keep = torch.exp(gz + m_prev - m_next)
+        w_new = torch.exp(s_decay[:, z] - m_next[:, None, :])   # (B, Q, H)
+        c_prev = (w_keep[..., None, None] * c_prev
+                  + torch.einsum("bqnh,bqnp,bqn->bnhp", kz, vz, w_new))
+        n_prev = w_keep[..., None] * n_prev + torch.einsum("bqnh,bqn->bnh", kz, w_new)
+        m_prev = m_next
+    y = torch.stack(ys, dim=1).reshape(bsz, s, d).to(cd)
+    y = rms_norm(y, p["norm"], use_kernel=use_kernel)
+    return linear(y, p["wo"], use_kernel)
+
+
+def mlstm_decode(x, p, n_heads: int, c_state, n_state, m_state, *, use_kernel: bool = False):
+    """Recurrent mLSTM step: x (B, 1, D); c (B, H, hd, hd), n (B, H, hd), m (B, H).
+    Returns (out (B, 1, D), c, n, m); the states passed in are not changed."""
+    bsz, _, d = x.shape
+    hd = d // n_heads
+    cd = x.dtype
+    f32 = torch.float32
+    q = linear(x, p["wq"], use_kernel).reshape(bsz, n_heads, hd).to(f32)
+    k = (linear(x, p["wk"], use_kernel).reshape(bsz, n_heads, hd) / math.sqrt(hd)).to(f32)
+    v = linear(x, p["wv"], use_kernel).reshape(bsz, n_heads, hd).to(f32)
+    i_g = linear(x, p["wi"], use_kernel).reshape(bsz, n_heads).to(f32)
+    logf = F.logsigmoid(linear(x, p["wf"], use_kernel).reshape(bsz, n_heads).to(f32))
+
+    m_new = torch.maximum(logf + m_state, i_g)
+    fs = torch.exp(logf + m_state - m_new)[..., None]
+    is_ = torch.exp(i_g - m_new)[..., None]
+    c_new = fs[..., None] * c_state + is_[..., None] * torch.einsum("bnh,bnp->bnhp", k, v)
+    n_new = fs * n_state + is_ * k
+    num = torch.einsum("bnh,bnhp->bnp", q, c_new)
+    den = torch.maximum(torch.abs(torch.einsum("bnh,bnh->bn", q, n_new)),
+                        torch.exp(-m_new))[..., None]
+    y = (num / den).to(cd).reshape(bsz, 1, d)
+    y = rms_norm(y, p["norm"], use_kernel=use_kernel)
+    return linear(y, p["wo"], use_kernel), c_new, n_new, m_new
+
+
+def init_slstm(generator: torch.Generator, d_model: int, n_heads: int, dtype=torch.float32, *,
+               device="cpu"):
+    """Random weights from ``generator`` at the JAX initialisers' scales."""
+    return {"w_gates": dense_init(generator, d_model, 4 * d_model, dtype, device=device),
+            "r_gates": dense_init(generator, d_model, 4 * d_model, dtype, device=device),
+            "norm": init_rmsnorm(d_model, dtype, device=device)}
+
+
+def slstm_apply(x, p, h0=None, c0=None, *, use_kernel: bool = False):
+    """Sequential sLSTM: x (B, S, D) -> (y (B, S, D), h (B, D), c (B, D) fp32).
+
+    The recurrent product ``h @ r_gates`` is one (B, D) @ (D, 4D) product a
+    step: S launches of the matmul kernel under ``use_kernel``, as the
+    reference's scan makes S products."""
+    bsz, s, d = x.shape
+    cd = x.dtype
+    f32 = torch.float32
+    gates_x = linear(x, p["w_gates"], use_kernel)               # the input part, all steps
+    h = torch.zeros((bsz, d), dtype=cd, device=x.device) if h0 is None else h0.to(cd)
+    c = torch.zeros((bsz, d), dtype=f32, device=x.device) if c0 is None else c0
+    ys = []
+    for t in range(s):
+        g = gates_x[:, t] + linear(h, p["r_gates"], use_kernel)
+        i, f, z, o = torch.split(g.to(f32), d, dim=-1)
+        c = torch.sigmoid(f) * c + torch.exp(torch.clamp(i, max=0.0)) * torch.tanh(z)
+        h = (torch.sigmoid(o) * torch.tanh(c)).to(cd)
+        ys.append(h)
+    y = rms_norm(torch.stack(ys, dim=1), p["norm"], use_kernel=use_kernel)
+    return y, h, c

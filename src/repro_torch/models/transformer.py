@@ -33,18 +33,26 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve as _device
 from repro_torch.kernels.flash_attention.ops import attn_fn as flash_attn_fn
+from repro_torch.tree import map_tree
 from .layers import (dense_init, embed_init, gqa_attention, gqa_decode_attention,
                      init_attention, init_mlp, init_rmsnorm, linear, mlp, rms_norm)
 
 
 def _map(fn, tree):
+    """``fn`` leaf by leaf over nested dicts: the walk of the stacked blocks
+    on every forward and decode tick, kept to dicts so that it costs the
+    host as little as possible (``tree.map_tree`` also takes lists)."""
     if isinstance(tree, dict):
         return {k: _map(fn, v) for k, v in tree.items()}
     return fn(tree)
 
 
 def _stack(trees):
+    """Trees of one structure stacked leaf by leaf along a new leading axis;
+    one tree becomes views of its leaves (no copy of a large model's block)."""
     first = trees[0]
+    if len(trees) == 1:
+        return _map(lambda t: t.unsqueeze(0), first)
     if isinstance(first, dict):
         return {k: _stack([t[k] for t in trees]) for k in first}
     return torch.stack(trees)
@@ -121,7 +129,8 @@ def init_lm(cfg: ArchConfig, *, generator: torch.Generator, device="cuda",
 
 
 def params_from_jax(tree_np, *, device="cuda", dtype=None):
-    """The JAX package's parameter tree (nested dicts of numpy arrays) as tensors.
+    """The JAX package's parameter tree (nested dicts and lists of numpy
+    arrays) as tensors.
 
     ``dtype=None`` keeps each array's dtype; JAX's bfloat16 arrays become
     ``torch.bfloat16``.
@@ -136,7 +145,7 @@ def params_from_jax(tree_np, *, device="cuda", dtype=None):
             t = torch.from_numpy(a)
         return t.to(device=device, dtype=dtype or t.dtype)
 
-    return _map(leaf, tree_np)
+    return map_tree(leaf, tree_np)
 
 
 def _head(params) -> torch.Tensor:

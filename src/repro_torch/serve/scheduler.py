@@ -6,10 +6,12 @@ of sequence slots, teacher-forces prompts (prefill by decode, one step
 function), emits tokens until EOS or ``max_new``, and backfills freed slots
 from the queue. Admission, commit, EOS, ``steps`` and ``utilization``
 follow the reference line for line, except that an admitted slot's
-recurrent state (the hybrid family's conv and SSM lines) is zeroed, which
-the reference omits; the decode step is
-``repro_torch.models.api.decode_step`` under ``torch.inference_mode()``,
-through the kernels unless ``use_kernel=False``.
+recurrent state starts again from its initial value (``reset_slot``
+copies it from a one-slot ``api.init_cache``: the hybrid family's conv and
+SSM lines at zero; xLSTM's mLSTM C and n at zero and its stabiliser m at
+-1e30, its sLSTM h and c at zero), which the reference omits; the decode
+step is ``repro_torch.models.api.decode_step`` under
+``torch.inference_mode()``, through the kernels unless ``use_kernel=False``.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import api
+from repro_torch.tree import flatten, leaves
 
 
 @dataclasses.dataclass
@@ -39,8 +42,23 @@ class Completion:
     steps_in_flight: int
 
 
-# Cache entries that hold recurrent state, laid out (G, per, slots, ...).
-_RECURRENT_STATES = ("conv", "ssm")
+# KV lines: positions at or past a slot's ``pos`` are masked, so a reused
+# slot needs them not wiped.
+_POSITIONAL = ("k", "v")
+
+
+def reset_slot(cache, fresh, slot: int) -> None:
+    """Copy ``fresh``, the family's cache of one sequence as
+    ``api.init_cache`` builds it, into slot ``slot`` of ``cache``, leaf by
+    leaf, in place, but for the KV lines: the slot's recurrent state starts
+    again from its initial value (xLSTM's m at -1e30, the rest at zero). A
+    leaf's slot axis is the first whose length differs from the one-slot
+    leaf's."""
+    for (path, t), f in zip(flatten(cache), leaves(fresh)):
+        if path.rsplit("/", 1)[-1] in _POSITIONAL:
+            continue
+        axis = next((a for a, (n, m) in enumerate(zip(t.shape, f.shape)) if n != m), None)
+        (t if axis is None else t.narrow(axis, slot, 1)).copy_(f)
 
 
 class ContinuousBatcher:
@@ -52,7 +70,13 @@ class ContinuousBatcher:
         self.slots, self.max_seq = slots, max_seq
         self.device = torch.device(device)
         self.use_kernel = use_kernel
+        if cfg.family == "audio":
+            raise NotImplementedError(
+                "the batcher's requests carry no audio frames, so the cross-attention K/V "
+                "of a slot would never be filled; serve the audio family with "
+                "encdec.prefill_cross and api.decode_step")
         self.cache = api.init_cache(cfg, slots, max_seq, device=self.device)
+        self.fresh = api.init_cache(cfg, 1, max_seq, device=self.device)
         # per-slot state (host-side bookkeeping)
         self.active: list[dict | None] = [None] * slots
         self.queue: deque[Request] = deque()
@@ -71,14 +95,12 @@ class ContinuousBatcher:
                 self.active[s] = {"req": req, "pos": 0, "out": [],
                                   "start_step": self.steps}
                 # KV positions >= pos are masked by valid_upto, so the KV
-                # cache needs no wipe; the recurrent conv and SSM states are
-                # not positional, so the slot's lines start again from zero.
-                # (The reference wipes neither and so starts a request from
-                # the previous one's state: ROADMAP.md queue 3, fault 4.)
+                # cache needs no wipe; the recurrent states are not
+                # positional, so the slot's start again from their initial
+                # values. (The reference resets none and so starts a request
+                # from the previous one's state: ROADMAP.md queue 3, fault 4.)
                 with torch.inference_mode():
-                    for key in _RECURRENT_STATES:
-                        if key in self.cache:
-                            self.cache[key][:, :, s] = 0
+                    reset_slot(self.cache, self.fresh, s)
 
     def _gather_inputs(self):
         toks = np.zeros((self.slots, 1), np.int64)

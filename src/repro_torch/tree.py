@@ -40,14 +40,18 @@ def leaves(tree) -> list:
     return [leaf for _, leaf in flatten(tree)]
 
 
-def map_tree(fn, tree, *rest):
-    """``fn`` applied leaf by leaf to ``tree`` and trees of its structure."""
+def map_tree(fn, tree, *rest, is_leaf=None):
+    """``fn`` applied leaf by leaf to ``tree`` and trees of its structure;
+    a node for which ``is_leaf`` is true is handed to ``fn`` whole."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree, *rest)
+    kw = {"is_leaf": is_leaf}
     if isinstance(tree, dict):
-        return {k: map_tree(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+        return {k: map_tree(fn, tree[k], *(r[k] for r in rest), **kw) for k in tree}
     if _is_namedtuple(tree):
-        return type(tree)(*(map_tree(fn, *xs) for xs in zip(tree, *rest)))
+        return type(tree)(*(map_tree(fn, *xs, **kw) for xs in zip(tree, *rest)))
     if isinstance(tree, (list, tuple)):
-        return type(tree)(map_tree(fn, *xs) for xs in zip(tree, *rest))
+        return type(tree)(map_tree(fn, *xs, **kw) for xs in zip(tree, *rest))
     if tree is None:
         return None
     return fn(tree, *rest)

@@ -64,12 +64,12 @@ def test_config_copy_matches_reference(arch, reduced):
 
 
 def test_unported_arch_names_its_roadmap_item():
+    """Every architecture of the JAX registry is ported, in its order; an
+    unknown one raises KeyError naming the known ones."""
     from repro.configs import ARCH_IDS as JAX_ARCH_IDS
-    for arch in JAX_ARCH_IDS:
-        if arch in ARCH_IDS:
-            continue
-        with pytest.raises(KeyError, match="ROADMAP.md queue 1 item"):
-            get_config(arch)
+    assert ARCH_IDS == JAX_ARCH_IDS
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("gpt-5")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -284,19 +284,21 @@ def test_silu_rounds_as_jax():
     assert (torch.nn.functional.silu(xt).float().numpy() != ref).mean() > 0.2
 
 
-@pytest.mark.parametrize("family_arch", ["xlstm-350m", "kimi-k2-1t-a32b", "whisper-base",
-                                         "llama4-maverick-400b-a17b"])
-def test_other_families_not_ported(family_arch):
-    cfg = jax_get_config(family_arch).reduced()
-    # the JAX config dataclass is another class; rebuild it as the port's
-    from repro_torch.configs.base import ArchConfig
-    fields = dataclasses.asdict(cfg)
-    fields["moe"] = fields["ssm"] = None
-    ours = ArchConfig(**fields)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
-        api.prefill_logits({}, ours, {"tokens": torch.zeros((1, 2), dtype=torch.long)})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
-        api.init_cache(ours, 1, 4, device="cpu")
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_arch_resolves_and_builds_a_cache(arch):
+    """Each arch id resolves in the registry to the reference's config, and
+    api.init_cache builds the reference's cache structure and shapes at its
+    reduced size."""
+    from repro.configs import get_config as jax_cfg
+    cfg = get_config(arch).reduced()
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jax_cfg(arch).reduced())
+    ours = api.init_cache(cfg, 2, 8, device="cpu")
+    ref = jax_api.init_cache(jax_cfg(arch).reduced(), 2, 8)
+    shapes = lambda tree: [(tuple(a.shape), str(a.dtype).removeprefix("torch."))  # noqa: E731
+                           for a in jax.tree.leaves(tree)]
+    assert jax.tree.structure(jax.tree.map(lambda a: 0, ours)) == \
+        jax.tree.structure(jax.tree.map(lambda a: 0, ref))
+    assert shapes(ours) == shapes(ref)
 
 
 def test_serve_cli_on_cpu(capsys):

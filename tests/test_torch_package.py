@@ -31,7 +31,11 @@ def test_import_loads_no_jax_and_no_reference():
             "repro_torch.kernels.ssd.ops", "repro_torch.models.ssm",
             "repro_torch.models.recurrent", "repro_torch.configs.zamba2_2_7b",
             "repro_torch.models.transformer", "repro_torch.models.api",
-            "repro_torch.serve.scheduler", "repro_torch.launch.serve"} <= set(mods)
+            "repro_torch.serve.scheduler", "repro_torch.launch.serve",
+            "repro_torch.models.moe", "repro_torch.models.encdec", "repro_torch.serve.quant",
+            "repro_torch.train.hybrid", "repro_torch.configs.xlstm_350m",
+            "repro_torch.configs.whisper_base", "repro_torch.configs.kimi_k2_1t_a32b",
+            "repro_torch.configs.llama4_maverick_400b_a17b"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -118,6 +122,9 @@ def test_kernel_wrapper_counts_launches(name):
     assert isinstance(getattr(ops, name).launches, int)
 
 
-def test_config_base_is_a_verbatim_copy():
-    assert (PORT / "configs" / "base.py").read_text() == \
-        (ROOT / "src" / "repro" / "configs" / "base.py").read_text()
+@pytest.mark.parametrize("name", sorted(p.name for p in (ROOT / "src" / "repro" / "configs")
+                                         .glob("*.py") if p.name != "__init__.py"))
+def test_config_base_is_a_verbatim_copy(name):
+    """base.py and every architecture's config module are the reference's, byte for byte."""
+    assert (PORT / "configs" / name).read_text() == \
+        (ROOT / "src" / "repro" / "configs" / name).read_text()
