@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with a CUDA device and nvcc:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch`` (nvcc, sm_90a,
-one process per source, all started together) and then runs sixteen phases;
+one process per source, all started together) and then runs seventeen phases;
 any failure raises and exits non-zero.
 
   (A) The conv kernel against its plain PyTorch version at every distinct
@@ -188,7 +188,35 @@ any failure raises and exits non-zero.
       launches printed. Then 8 decode ticks of 4 slots (capacity 4), 1161
       matmul launches each, beside the 10.1 ms that reading every
       expert's weights once takes.
-  Phases M-P print their walls, tokens/s and peak memory; each draws from
+  (Q) The paper's pipeline across processes and expert parallelism:
+      Q_RANKS = 4 ranks spawned after P, all on cuda:0 (the machine has one
+      card, and NCCL refuses two ranks on one device), in a gloo group
+      that moves device tensors through host memory, FileStore rendezvous,
+      a 60 s timeout on every collective; the parent builds every kernel
+      first, frees P's tensors and fails if a rank fails or the ranks
+      outlive 400 s. (Q1) phase C's net, weights and input through
+      ``hybrid_forward(mesh=)``, each rank holding its own head conv:
+      exactly 9 conv launches a rank (7 ticks + 2 tail convs, 36 in all,
+      fp32 direct), the output within 2e-4 of phase C's one-device
+      output, and each rank's stage-weight gradient (plain route under
+      autograd, loss the output's sum) within 2e-4 of the sequential
+      loss's. (Q2) phase M's model, drawn on every rank from phase M's
+      generator, through ``hybrid_lm_forward(mesh=)``: exactly 217 matmul
+      (wgmma), 73 RMSNorm and 36 flash (wgmma) launches a rank (7 ticks x
+      2 head blocks + 22 tail), the logits within 2e-2 of phase M's
+      one-device pipelined ones. (Q3) Kimi-K2's MoE MLP at full width,
+      expert-parallel over a (data 1, model 4) mesh, each rank drawing
+      the whole layer's generator sequence and keeping its 96 experts
+      (``init_moe_mlp(experts=)``): exactly 292 matmul launches a rank
+      (router, 288 expert products, shared expert), the output within
+      1e-2 of the dense kernel route (computed by the parent over all 384
+      experts, then freed) on the tokens whose top-k sets and kept
+      assignments agree, the aux loss within 1e-5, the same drops. (Q4)
+      ``compressed_psum`` of seeded fp32 gradients equal to the formula on
+      the host, bit for bit. It prints the backend and transport, each
+      rank's walls (4 processes time-sharing one card: no multi-card
+      number) and peak memory.
+  Phases M-Q print their walls, tokens/s and peak memory; each draws from
   a generator of its own.
 
 Then it holds the bf16 conv of VGG-16 to cuDNN in the same run (the sum of
@@ -200,10 +228,16 @@ StarCoder2 (hd 128), 3x on Zamba2 (hd 80), the bf16 RMSNorm of each LM's
 prefill, back to back, to at most 1.05x F.rms_norm's (the single-call and
 decode sums printed), and the bf16 SSD at Zamba2's prefill shape, back to
 back, to at most 10x its bytes bound. Its last two
-lines are the kernel summary (one JSON object; the matmul, RMSNorm and
-flash entries carry the launches of phases M-P by path) and the result
+lines are the kernel summary (one JSON object; the conv, matmul, RMSNorm
+and flash entries carry the launches of phases M-Q by path) and the result
 ``{"ok": true, "device": {...}}``. There is no CPU fallback: without a CUDA
 device it exits non-zero and prints no result.
+
+    python3 chip_smoke.py --q-only
+
+runs phases C and M (what phase Q is held to) and Q alone, with the same
+gates, and prints Q's wall but neither summary line: to compare phase Q
+of two trees in one call, run each tree's script in turn.
 """
 from __future__ import annotations
 
@@ -253,11 +287,14 @@ from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
 from repro_torch.kernels.ssd.ops import ssd  # noqa: E402
 from repro_torch.kernels.ssd.ssd import plan_for as ssd_plan_for  # noqa: E402
 from repro_torch.kernels.ssd.ref import ssd_ref  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh, make_mesh, spawn_ranks  # noqa: E402
 from repro_torch.models import (api, encdec, layers, moe, recurrent, ssm,  # noqa: E402
                                 transformer)
 from repro_torch.models.cnn import (HybridPlan, forward, hybrid_forward,  # noqa: E402
                                     init_vgg)
 from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.parallel import act  # noqa: E402
+from repro_torch.parallel.collectives import compressed_psum, on_host  # noqa: E402
 from repro_torch.serve.quant import (dequantize_params, quantize_params,  # noqa: E402
                                      storage_bytes)
 from repro_torch.serve.scheduler import ContinuousBatcher, Request  # noqa: E402
@@ -510,15 +547,24 @@ def phase_b(gen) -> dict:
     return launches
 
 
-def phase_c(gen) -> None:
-    """Pipelined head at the width of VGG-16's second group."""
+def group_net():
+    """The width of VGG-16's second group: 4 x conv 128 (the pipelined head),
+    pool, 2 x conv 256 at 112x112."""
     b = _B("vgg_group2", 112, 112, 128)
     for _ in range(4):
         b.conv(128, 3)
     b.pool(2)
     b.conv(256, 3).conv(256, 3)
-    net = b.done()
-    plan = HybridPlan(sp=4, n_micro=4)
+    return b.done()
+
+
+GROUP_PLAN = HybridPlan(sp=4, n_micro=4)
+
+
+def phase_c(gen, keep: dict) -> None:
+    """Pipelined head at the width of VGG-16's second group; its weights,
+    input and output are kept on the host for phase Q."""
+    net, plan = group_net(), GROUP_PLAN
     params = init_vgg(net, generator=gen, device="cuda")
     x = torch.randn((BATCH, 128, 112, 112), generator=gen, device="cuda")
     conv2d.launches = 0
@@ -534,6 +580,8 @@ def phase_c(gen) -> None:
     check(err <= TOL[torch.float32], f"pipelined head vs plain: normalised error {err:.3e}")
     print(f"C float32  group net (8,128,112,112) pipelined sp=4 n_micro=4: "
           f"normalised error {err:.3e}  launches {conv2d.launches}")
+    keep["C"] = {"params": [None if w is None else w.cpu() for w in params], "x": x.cpu(),
+                 "out": out.cpu()}
 
 
 # ---------------------------------------------------------------------------
@@ -1793,11 +1841,12 @@ def quant_bytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def phase_m() -> dict:
+def phase_m(keep: dict) -> dict:
     """StarCoder2-3B at full width and depth, bf16, 4 x 512: the hybrid LM plan
     (sp 8, 4 stages, 4 microbatches) pipelined on the kernel route against
     api.prefill_logits on the kernel route; then int8 weight-only
-    quantization of the same weights."""
+    quantization of the same weights. The pipelined logits are kept on the
+    host for phase Q."""
     gen, cfg, plan = zoo_gen("M"), get_config(LM_ARCH), HYBRID_LM_PLAN
     torch.cuda.reset_peak_memory_stats()
     params = transformer.init_lm(cfg, generator=gen, device="cuda", dtype=torch.bfloat16)
@@ -1838,6 +1887,7 @@ def phase_m() -> dict:
     print(f"M bfloat16 walls: prefill {ref_ms:.3f} ms ({n_tok / ref_ms * 1e3:.1f} tokens/s), "
           f"sequential plan {seq_ms:.3f} ms, pipelined plan {pipe_ms:.3f} ms "
           f"({n_tok / pipe_ms * 1e3:.1f} tokens/s) (medians of 3)")
+    keep["M"] = out.cpu()
     del seq, plain, out
 
     q = quantize_params(params)
@@ -2248,6 +2298,303 @@ def phase_p() -> dict:
             path_entry(tick_got)}
 
 
+# ---------------------------------------------------------------------------
+# The paper's pipeline across processes, expert parallelism (phase Q)
+# ---------------------------------------------------------------------------
+
+Q_RANKS = 4
+Q_BACKEND = "gloo"  # NCCL refuses two ranks on one device ("Duplicate GPU detected")
+Q_TIMEOUT = 60  # seconds: any collective of the ranks' group
+Q_JOIN = 400  # seconds: the whole of phase Q's ranks
+Q_SEED = 20
+MOE_GATE = 1e-2  # Q3: EP against the dense route, on the tokens whose routes agree
+AUX_GATE = 1e-5
+# Q4's gradient tree (fp32): an embedding, a stacked block weight, a vector
+Q4_SHAPES = {"embed": (4096, 512), "blocks": {"w": (8, 1024, 256)}, "scale": (512,)}
+
+
+def q_grads(rank: int) -> tuple[dict, dict]:
+    """Rank ``rank``'s seeded fp32 gradients and error feedback for Q4, drawn
+    on the host (a generator a rank; the ranks' scales differ)."""
+    gen = torch.Generator().manual_seed(Q_SEED * 100 + rank)
+
+    def tree(shapes, scale):
+        return {k: tree(v, scale) if isinstance(v, dict)
+                else torch.randn(v, generator=gen) * scale * (rank + 1)
+                for k, v in shapes.items()}
+
+    return tree(Q4_SHAPES, 1.0), tree(Q4_SHAPES, 0.01)
+
+
+def q_formula(ranks: int) -> tuple[dict, list]:
+    """compressed_psum's result on the host: the int32 sum of every rank's int8
+    values times the largest scale, and each rank's error feedback
+    ``acc - q * scale`` with its own scale."""
+    per = [q_grads(r) for r in range(ranks)]
+    flat = [(dict(tree.flatten(g)), dict(tree.flatten(e))) for g, e in per]
+    total, errs = {}, [{} for _ in range(ranks)]
+    for key in flat[0][0]:
+        qs, scales = [], []
+        for r, (g, e) in enumerate(flat):
+            acc = g[key] + e[key]
+            scale = torch.clamp(acc.abs().max(), min=1e-12) / 127.0
+            q = torch.clamp(torch.round(acc / scale), -127, 127).to(torch.int8)
+            errs[r][key] = acc - q.float() * scale
+            qs.append(q.to(torch.int32))
+            scales.append(scale)
+        total[key] = torch.stack(qs).sum(0).float() * torch.stack(scales).max()
+    return total, errs
+
+
+def q_counted(fn, reps: int):
+    """timed_counted with the conv's counts beside the LM kernels': (the last
+    fn(), its launches, the median wall in ms)."""
+    def run():
+        conv2d.launches = 0
+        conv2d.launches_by_route = dict.fromkeys(conv2d.launches_by_route, 0)
+        return fn()
+
+    out, got, ms = timed_counted(run, reps)
+    got["conv2d"], got["conv2d_routes"] = conv2d.launches, dict(conv2d.launches_by_route)
+    return out, got, ms
+
+
+def errs_text(results, q: str, key: str = "err") -> str:
+    return "[" + ", ".join(f"{r[q][key]:.3e}" for r in results) + "]"
+
+
+def per_rank(results, q: str, key: str, digits: int = 3) -> list:
+    return [round(r[q][key], digits) for r in results]
+
+
+def q_rank(rank: int, world: int, tmp: str) -> dict:
+    """Phase Q on one rank of ``world``, all on cuda:0: Q1 the VGG group's head
+    over a stage mesh, Q2 StarCoder2-3B's hybrid plan over a stage mesh, Q3
+    Kimi-K2's MoE MLP expert-parallel, Q4 compressed_psum. Returns this rank's
+    launches, errors, walls and peak memory; the parent checks them."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    stages = make_mesh((world,), ("stage",), device_type="cuda")
+    out = {"backend": torch.distributed.get_backend(), "transport": (
+        "host" if on_host(torch.distributed.group.WORLD) else "device")}
+
+    # Q1: this rank holds its own head conv and the tail
+    c = torch.load(os.path.join(tmp, "q1.pt"))
+    own = [None if w is None or (i < GROUP_PLAN.sp and i != rank) else w.cuda()
+           for i, w in enumerate(c["params"])]
+    x, net = c["x"].cuda(), group_net()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        y, got, ms = q_counted(lambda: hybrid_forward(own, net, x, GROUP_PLAN, mesh=stages), 3)
+    own[rank].requires_grad_(True)
+    hybrid_forward(own, net, x, GROUP_PLAN, mesh=stages, use_kernel=False).sum().backward()
+    out["q1"] = {"err": normalised_err(y, c["out"].cuda()), "launches": got, "ms": ms,
+                 "grad_err": normalised_err(own[rank].grad, c["grads"][rank].cuda()),
+                 "peak_gb": peak_gb()}
+    del c, own, x, y
+
+    # Q2: the same seeded StarCoder2-3B as phase M on every rank; rank i reads
+    # stage i's head blocks
+    gen, cfg = zoo_gen("M"), get_config(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    params = transformer.init_lm(cfg, generator=gen, device="cuda", dtype=torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_BATCH, PREFILL_SEQ), generator=gen,
+                           device="cuda")
+    with torch.inference_mode():
+        logits, got, ms = q_counted(
+            lambda: hybrid_lm_forward(params, cfg, tokens, HYBRID_LM_PLAN, stages), 3)
+    out["q2"] = {"err": normalised_err(logits, torch.load(os.path.join(tmp, "q2.pt")).cuda()),
+                 "launches": got, "ms": ms, "peak_gb": peak_gb()}
+    del params, logits
+
+    # Q3: this rank's 96 experts, drawn as the whole layer is drawn
+    mesh = make_local_mesh(model=world, device_type="cuda")
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    n_local = cfg.moe.n_experts // world
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(Q_SEED)
+    p = moe.init_moe_mlp(gen, cfg, torch.bfloat16, device="cuda",
+                         experts=(rank * n_local, (rank + 1) * n_local))
+    d = torch.load(os.path.join(tmp, "q3.pt"))
+    x = d["x"].cuda()
+    specs = dict(act.default_specs(mesh), _ep_mesh=(mesh, "model"))
+    with torch.inference_mode(), act.activation_specs(specs):
+        (y, aux, dropped), got, ms = q_counted(lambda: moe.moe_mlp(x, p, cfg, use_kernel=True), 3)
+        xf = x.reshape(-1, x.shape[-1])
+        idx = moe.route(xf, p["router"], cfg, use_kernel=True)[3]
+    k, t = cfg.moe.top_k, xf.shape[0]
+    (e_ep, o_ep), (e_d, o_d) = idx.sort(-1), d["idx"].cuda().sort(-1)
+    same = (e_ep == e_d).all(-1)
+    kept = moe.dispatch(idx, cfg)[2].reshape(k, t).t().gather(1, o_ep)
+    kept_d = d["keep"].cuda().reshape(k, t).t().gather(1, o_d)
+    mask = same & (kept == kept_d).all(-1)
+    out["q3"] = {"err": normalised_err(y.reshape(t, -1)[mask], d["y"].cuda().reshape(t, -1)[mask]),
+                 "tokens": int(mask.sum()), "agree": same.float().mean().item(),
+                 "aux": aux.item(), "aux_dense": d["aux"], "dropped": int(dropped),
+                 "dropped_dense": d["dropped"], "launches": got, "ms": ms,
+                 "expert_gb": sum(p[name].numel() * 2 for name in ("w_up", "w_gate", "w_down"))
+                 / 1e9, "peak_gb": peak_gb()}
+    del p, d, x, y
+
+    # Q4: compressed_psum of seeded gradients
+    g, e = (tree.map_tree(torch.Tensor.cuda, t) for t in q_grads(rank))
+    total, err = compressed_psum(g, None, e)
+    out["q4"] = {"total": {k: v.cpu() for k, v in tree.flatten(total)},
+                 "err": {k: v.cpu() for k, v in tree.flatten(err)}}
+    return out
+
+
+def q_moe_reference(tmp: str) -> dict:
+    """Kimi-K2's MoE MLP, all 384 experts (33.8 GB), seeded, and its input at
+    phase P's prefill shape: the dense kernel route's output, aux loss, experts
+    and kept assignments, saved for the ranks; the layer is freed."""
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(Q_SEED)
+    p = moe.init_moe_mlp(gen, cfg, torch.bfloat16, device="cuda")
+    x = torch.randn((PREFILL_BATCH, PREFILL_SEQ, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    with torch.inference_mode():
+        (y, aux, dropped), got, ms = timed_counted(lambda: moe.moe_mlp(x, p, cfg, use_kernel=True))
+        idx = moe.route(x.reshape(-1, cfg.d_model), p["router"], cfg, use_kernel=True)[3]
+        keep = moe.dispatch(idx, cfg)[2]
+    torch.save({"x": x.cpu(), "y": y.cpu(), "aux": aux.item(), "dropped": int(dropped),
+                "idx": idx.cpu(), "keep": keep.cpu()}, os.path.join(tmp, "q3.pt"))
+    del p
+    return {"launches": got, "ms": ms}
+
+
+def q_paths(results: list) -> dict:
+    """The launches of each Q path by kernel: summed over the ranks, per rank,
+    and by route."""
+    names = {"q1": "VGG group net, 4 stage ranks", "q2": f"{LM_ARCH} hybrid plan, 4 stage ranks",
+             "q3": f"{MOE_ARCH} MoE MLP, expert-parallel over 4 ranks"}
+    paths = {}
+    for q, path in names.items():
+        by = {}
+        for kernel in ("conv2d", "matmul", "rmsnorm", "flash_attention"):
+            per = [r[q]["launches"][kernel] for r in results]
+            if not any(per):
+                continue
+            by[kernel] = {"launches": sum(per), "launches_per_rank": per}
+            if f"{kernel}_routes" in results[0][q]["launches"]:
+                routes = [r[q]["launches"][f"{kernel}_routes"] for r in results]
+                by[kernel]["launches_by_route"] = {k: sum(x[k] for x in routes) for k in routes[0]}
+        paths[f"{path} (Q)"] = by
+    return paths
+
+
+def phase_q(keep: dict) -> dict:
+    """Phase C's pipelined head and phase M's hybrid plan across Q_RANKS
+    processes, one stage a rank; Kimi-K2's MoE MLP expert-parallel; and
+    compressed_psum. The ranks share cuda:0 and talk over gloo through host
+    memory: their walls are 4 processes time-sharing one card and say
+    nothing of scaling across cards."""
+    net, plan = group_net(), GROUP_PLAN
+    t_ref = time.perf_counter()
+    # Q1's reference gradient: the sequential loss sum(forward) on the plain route
+    c = keep.pop("C")
+    params = [None if w is None else w.cuda().requires_grad_(i < plan.sp)
+              for i, w in enumerate(c["params"])]
+    forward(params, net, c["x"].cuda(), use_kernel=False).sum().backward()
+    c["grads"] = [params[i].grad.cpu() for i in range(plan.sp)]
+    del params
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="phase-q-") as tmp:
+        torch.save(c, os.path.join(tmp, "q1.pt"))
+        torch.save(keep.pop("M"), os.path.join(tmp, "q2.pt"))
+        torch.cuda.reset_peak_memory_stats()
+        dense = q_moe_reference(tmp)
+        dense_peak = peak_gb()
+        torch.cuda.empty_cache()
+        ref_s = time.perf_counter() - t_ref
+        _build.build_all()  # built in setup: the ranks load the libraries, none builds
+        t0 = time.perf_counter()
+        results = spawn_ranks(q_rank, Q_RANKS, backend=Q_BACKEND, timeout=Q_TIMEOUT,
+                              join_timeout=Q_JOIN, args=(tmp,))
+        ranks_s = time.perf_counter() - t0
+    r0 = results[0]
+    print(f"Q {Q_RANKS} ranks on one {torch.cuda.get_device_name(0)}: backend "
+          f"{r0['backend']}, transport through {r0['transport']} memory (NCCL refuses two "
+          f"ranks on one device); collectives time out after {Q_TIMEOUT} s; references "
+          f"{ref_s:.1f} s, the ranks {ranks_s:.1f} s (spawn to join). Walls below are "
+          f"{Q_RANKS} processes time-sharing one card, not a multi-card number.")
+    check(all(r["backend"] == Q_BACKEND and r["transport"] == "host" for r in results),
+          f"Q: backends {[(r['backend'], r['transport']) for r in results]}")
+
+    # Q1: 7 ticks + the 2 tail convs a rank, all fp32 on the direct route
+    tail = sum(l.kind == "conv" for l in net.layers[plan.sp:])
+    per = plan.n_micro + Q_RANKS - 1 + tail
+    for rank, r in enumerate(results):
+        q = r["q1"]
+        check(q["launches"]["conv2d_routes"] == {"direct": per, "wgmma": 0},
+              f"Q1 rank {rank}: conv launches {q['launches']['conv2d_routes']}, expected {per}")
+        check(q["err"] <= TOL[torch.float32] and q["grad_err"] <= TOL[torch.float32],
+              f"Q1 rank {rank}: against phase C {q['err']:.3e}, stage gradient {q['grad_err']:.3e}")
+    print(f"Q1 float32 group net (8,128,112,112) sp=4 n_micro=4 over {Q_RANKS} stage ranks: "
+          f"against phase C's one-device output {max(r['q1']['err'] for r in results):.3e}, "
+          f"stage-weight gradients (plain route) against the sequential loss's "
+          f"{errs_text(results, 'q1', 'grad_err')}; conv launches per rank "
+          f"{[r['q1']['launches']['conv2d'] for r in results]} ({plan.n_micro + Q_RANKS - 1} "
+          f"ticks + {tail} tail); walls {per_rank(results, 'q1', 'ms')} ms (medians of 3); "
+          f"peak {per_rank(results, 'q1', 'peak_gb', 2)} GB")
+
+    # Q2: the one-device plan's block calls, spread over the stages
+    cfg, hp = get_config(LM_ARCH), HYBRID_LM_PLAN
+    want = expected_launches(cfg)
+    per_block = (want["matmul"] - 1) // cfg.n_layers
+    calls = (hp.n_micro + hp.n_stages - 1) * hp.layers_per_stage + cfg.n_layers - hp.sp
+    for rank, r in enumerate(results):
+        check_launches(f"Q2 rank {rank}", r["q2"]["launches"], {"wgmma": calls * per_block + 1},
+                       2 * calls + 1, calls)
+        check(r["q2"]["err"] <= TOL[torch.bfloat16],
+              f"Q2 rank {rank}: against phase M's pipelined logits {r['q2']['err']:.3e}")
+    n_tok = PREFILL_BATCH * PREFILL_SEQ
+    print(f"Q2 bfloat16 {LM_ARCH} hybrid plan sp={hp.sp} stages={hp.n_stages} "
+          f"micro={hp.n_micro} over {Q_RANKS} stage ranks: against phase M's one-device "
+          f"pipelined logits {errs_text(results, 'q2')}; launches per rank "
+          f"{r0['q2']['launches']} ({calls} block calls: {hp.n_micro + hp.n_stages - 1} ticks "
+          f"x {hp.layers_per_stage} head blocks + {cfg.n_layers - hp.sp} tail); walls "
+          f"{per_rank(results, 'q2', 'ms')} ms (medians of 3; "
+          f"{n_tok / max(r['q2']['ms'] for r in results) * 1e3:.1f} tokens/s at the slowest); "
+          f"peak {per_rank(results, 'q2', 'peak_gb', 2)} GB")
+
+    # Q3: a router, its 96 experts and the shared expert a rank, against the dense route
+    mcfg = get_config(MOE_ARCH)
+    per = 1 + 3 * mcfg.moe.n_experts // Q_RANKS + 3 * bool(mcfg.moe.n_shared)
+    for rank, r in enumerate(results):
+        q = r["q3"]
+        check_launches(f"Q3 rank {rank}", q["launches"], {"wgmma": per}, 0)
+        check(q["tokens"] > 0 and q["err"] <= MOE_GATE,
+              f"Q3 rank {rank}: EP against dense {q['err']:.3e} on {q['tokens']} tokens")
+        check(abs(q["aux"] - q["aux_dense"]) <= AUX_GATE and q["dropped"] == q["dropped_dense"],
+              f"Q3 rank {rank}: aux {q['aux']} against {q['aux_dense']}, dropped "
+              f"{q['dropped']} against {q['dropped_dense']}")
+    print(f"Q3 bfloat16 {MOE_ARCH} MoE MLP at full width, {mcfg.moe.n_experts} experts over "
+          f"{Q_RANKS} ranks ({mcfg.moe.n_experts // Q_RANKS} a rank, "
+          f"{r0['q3']['expert_gb']:.2f} GB of experts each), {n_tok} tokens: against the dense "
+          f"kernel route {errs_text(results, 'q3')} on "
+          f"{r0['q3']['tokens']} tokens whose top-k sets and kept assignments agree (sets agree "
+          f"on {r0['q3']['agree']:.4f}); aux {r0['q3']['aux']:.6f} against "
+          f"{r0['q3']['aux_dense']:.6f}; dropped {r0['q3']['dropped']} against "
+          f"{r0['q3']['dropped_dense']}; matmul launches per rank "
+          f"{[r['q3']['launches']['matmul'] for r in results]} (dense route "
+          f"{dense['launches']['matmul']}, wall {dense['ms']:.3f} ms, peak {dense_peak:.2f} GB); "
+          f"walls {per_rank(results, 'q3', 'ms')} ms (medians of 3); peak "
+          f"{per_rank(results, 'q3', 'peak_gb', 2)} GB")
+
+    # Q4: compressed_psum against the formula on the host, exactly
+    total, errs = q_formula(Q_RANKS)
+    for rank, r in enumerate(results):
+        for key, want_t in total.items():
+            check(torch.equal(r["q4"]["total"][key], want_t)
+                  and torch.equal(r["q4"]["err"][key], errs[rank][key]),
+                  f"Q4 rank {rank} {key}: compressed_psum differs from the formula")
+    print(f"Q4 float32 compressed_psum over {Q_RANKS} ranks, {len(total)} leaves "
+          f"({sum(t.numel() for t in total.values())} values): the int32 sum, the max scale "
+          f"and every rank's error feedback equal the formula on the host exactly")
+    return q_paths(results)
+
+
 def matmul_floors(rows, hybrid_rows) -> None:
     """The redesigned matmul against torch.matmul in this run, bf16: the
     prefill sum of single calls at most 4x torch.matmul's, the decode tick's
@@ -2345,6 +2692,9 @@ def lm_entries(rows, launches, serving, hybrid_rows, hybrid_launches, hybrid_ser
 
 
 def main() -> int:
+    if sys.argv[1:] not in ([], ["--q-only"]):
+        print("usage: chip_smoke.py [--q-only]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs an NVIDIA GPU",
               file=sys.stderr)
@@ -2367,9 +2717,20 @@ def main() -> int:
                 print(f"setup: {name}: {line.strip()}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if sys.argv[1:] == ["--q-only"]:
+        keep = {}
+        phase_c(gen, keep)
+        torch.cuda.empty_cache()
+        phase_m(keep)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        phase_q(keep)
+        print(f"Q wall {time.perf_counter() - t0:.1f} s")
+        return 0
     rows = phase_a(gen)
     launches = phase_b(gen)
-    phase_c(gen)
+    keep = {}  # phases C and M leave on the host what phase Q is held to
+    phase_c(gen, keep)
     torch.cuda.empty_cache()
     lm_rows = phase_d(gen)
     torch.cuda.empty_cache()
@@ -2390,7 +2751,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         print(f"{name} wall {time.perf_counter() - t0:.1f} s")
     zoo = {}
-    for name, phase in (("M", phase_m), ("N", phase_n), ("O", phase_o), ("P", phase_p)):
+    for name, phase in (("M", lambda: phase_m(keep)), ("N", phase_n), ("O", phase_o),
+                        ("P", phase_p), ("Q", lambda: phase_q(keep))):
         t0 = time.perf_counter()
         zoo.update(phase())
         torch.cuda.empty_cache()
@@ -2407,7 +2769,7 @@ def main() -> int:
                           **vgg_forward_summary(rows[torch.bfloat16])}}
     entries = lm_entries(lm_rows, prefill_launches, serving, hybrid_rows, hybrid_launches,
                          hybrid_serving)
-    for e in entries:  # the launches of phases M-P, path by path, on the kernels they ran
+    for e in [entry, *entries]:  # the launches of phases M-Q, path by path, on their kernels
         paths = {path: by[e["name"]] for path, by in zoo.items()
                  if by.get(e["name"], {}).get("launches")}
         if paths:

@@ -1,1 +1,2 @@
-"""Command-line entry points of the port."""
+"""Entry points of the port: the command lines, and the meshes and ranks
+they run on."""

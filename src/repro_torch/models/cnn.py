@@ -20,6 +20,7 @@ from repro_torch.core.netinfo import NetInfo
 from repro_torch.device import resolve as _device
 from repro_torch.kernels.conv2d.ops import conv2d
 from repro_torch.kernels.conv2d.ref import conv2d_ref
+from repro_torch.parallel.collectives import axis_group
 from repro_torch.parallel.pipeline import pipeline_apply, split_microbatches
 
 
@@ -93,34 +94,52 @@ class HybridPlan:
     n_micro: int
 
 
-def _homogeneous(ws) -> bool:
-    return all(w is not None for w in ws) and len({tuple(w.shape) for w in ws}) == 1
+def _homogeneous(layers) -> bool:
+    """Convs whose weights share one shape: one stage function serves them all."""
+    return (all(l.kind == "conv" for l in layers)
+            and len({(l.k, l.c, l.r, l.s) for l in layers}) == 1)
 
 
 def hybrid_forward(params, net: NetInfo, x: torch.Tensor, plan: HybridPlan, *,
-                   pipelined: bool = False) -> torch.Tensor:
+                   pipelined: bool = False, mesh=None, use_kernel: bool = True) -> torch.Tensor:
     """Run the net under a hybrid plan.
 
-    With ``pipelined=True``, ``sp > 1`` and a head of convs whose weights
-    share one shape (the paper's deepened VGG groups), the head runs through
-    the GPipe schedule of ``pipeline_apply`` with ``layers[0]`` as the stage
-    layer. Otherwise, and for a head holding a pool, the head runs layer by
-    layer. The tail always does.
+    A head of ``sp > 1`` convs whose weights share one shape (the paper's
+    deepened VGG groups) runs through the GPipe schedule of
+    ``pipeline_apply`` with ``layers[0]`` as the stage layer: on one device
+    with ``pipelined=True``, or over the ranks of ``mesh``'s ``stage`` axis,
+    one stage a rank (``sp`` must equal the axis's size), where rank ``i``
+    reads only ``params[i]`` of the head and the others may be None.
+    Otherwise, and for a head holding a pool (which the reference's mesh
+    route cannot run: ROADMAP.md queue 3, fault 1), the head runs layer by
+    layer. The tail always does, on every rank. ``use_kernel=False`` runs
+    the plain ``conv2d_ref`` (autograd goes through it; the kernel has no
+    backward).
     """
+    if pipelined and mesh is not None:
+        raise ValueError("pipelined=True runs the head on one device; a mesh spreads it "
+                         "over ranks: pass one or the other")
     layers = list(net.layers)
     sp = plan.sp
     head = params[:sp]
-    if pipelined and sp > 1 and _homogeneous(head):
-        def stage(w, h):
-            return layer_apply(h, w, layers[0])
 
-        y = pipeline_apply(stage, head, split_microbatches(x, plan.n_micro))
+    def stage(w, h):
+        return layer_apply(h, w, layers[0], use_kernel)
+
+    if mesh is not None and sp > 1:
+        _, n_stages, rank = axis_group(mesh, "stage")
+        if sp != n_stages:
+            raise ValueError(f"one pipeline stage per head layer: sp {sp}, {n_stages} stages")
+    if (pipelined or mesh is not None) and sp > 1 and _homogeneous(layers[:sp]):
+        mbs = split_microbatches(x, plan.n_micro)
+        y = (pipeline_apply(stage, head, mbs) if mesh is None
+             else pipeline_apply(stage, head[rank], mbs, mesh, axis="stage"))
         x = y.reshape((-1,) + tuple(y.shape[2:]))
     else:
         for w, l in zip(head, layers[:sp]):
-            x = layer_apply(x, w, l)
+            x = layer_apply(x, w, l, use_kernel)
 
     # generic structure: one reusable apply, recurrent over the tail
     for w, l in zip(params[sp:], layers[sp:]):
-        x = layer_apply(x, w, l)
+        x = layer_apply(x, w, l, use_kernel)
     return x

@@ -1,17 +1,16 @@
 """Mixture-of-Experts decoder (llama4-maverick, kimi-k2): the dense dispatch
-on one card.
+on one card, and expert parallelism over the ranks of a mesh axis.
 
-The counterpart of ``repro/models/moe.py`` without its expert-parallel
-path (``_moe_mlp_ep_shardmap``, which needs a mesh of cards). Dispatch is
-the reference's scatter/gather, step for step: the router's softmax in
-fp32; the top-k by a stable descending sort, so that tied probabilities
-give the lower expert first as ``jax.lax.top_k`` does; gates renormalised
-over the k; each assignment's slot within its expert from the k-major
-flattening and a stable argsort (first choices take slots before second
-choices); a capacity of ``ceil(T k cf / E)``, at least 4; an assignment
-over capacity is dropped, its slot clipped to the last one and its token
-scaled to zero, so the scatter-add (``index_add_``) adds zeros onto a live
-slot. The load-balance aux loss counts dropped assignments too.
+The counterpart of ``repro/models/moe.py``. Dispatch is the reference's
+scatter/gather, step for step: the router's softmax in fp32; the top-k by
+a stable descending sort, so that tied probabilities give the lower expert
+first as ``jax.lax.top_k`` does; gates renormalised over the k; each
+assignment's slot within its expert from the k-major flattening and a
+stable argsort (first choices take slots before second choices); a
+capacity of ``ceil(T k cf / E)``, at least 4; an assignment over capacity
+is dropped, its slot clipped to the last one and its token scaled to zero,
+so the scatter-add (``index_add_``) adds zeros onto a live slot. The
+load-balance aux loss counts dropped assignments too.
 
 With ``use_kernel=True`` the expert products run through the matmul
 kernel one expert at a time (3 launches an expert: up, gate, down, at M =
@@ -19,6 +18,15 @@ capacity), and the router, attention, shared expert and head through
 ``linear`` and the flash and RMSNorm kernels as in the dense LM;
 ``use_kernel=False`` runs the expert products as batched ``einsum``s, as
 the reference does.
+
+Expert parallelism (``_moe_mlp_ep``, the reference's
+``_moe_mlp_ep_shardmap``): when the installed activation specs name an
+``_ep_mesh`` (``parallel.act.ep_mesh``), ``moe_mlp`` runs the router and
+top-k replicated on every rank of the mesh axis, each rank dispatches the
+tokens to its own ``n_experts / ep`` experts only (its expert leaves hold
+just those; ``init_moe_mlp(experts=...)`` draws them) with the capacity of
+the global token count, and the partial outputs are all-reduced in fp32;
+the shared expert is added after the reduction. It runs forward only.
 """
 from __future__ import annotations
 
@@ -26,29 +34,41 @@ import math
 
 import torch
 
+from repro_torch import tree
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention.ops import attn_fn as flash_attn_fn
+from repro_torch.parallel.act import ep_mesh
+from repro_torch.parallel.collectives import all_reduce, axis_group
 from .layers import (_randn, dense_init, embed_init, gqa_attention, gqa_decode_attention,
                      init_attention, init_mlp, init_rmsnorm, linear, mlp, rms_norm, silu)
 from .transformer import _device, _stack, layer, rematted, softmax_xent, unstack
 
 
 def init_moe_mlp(generator: torch.Generator, cfg: ArchConfig, dtype=torch.float32, *,
-                 device="cpu"):
+                 device="cpu", experts: tuple[int, int] | None = None):
     """Random weights from ``generator`` at the JAX initialisers' scales. The
     expert leaves are drawn one expert at a time in fp32 and stored in
-    ``dtype``, so no whole leaf is ever held in fp32."""
+    ``dtype``, so no whole leaf is ever held in fp32.
+
+    ``experts=(lo, hi)`` keeps only experts lo..hi-1 of each expert leaf (an
+    expert-parallel rank's share). Every expert is still drawn, in the same
+    order, so the generator moves as for the whole layer and the kept
+    experts, the router and the shared expert equal the whole layer's."""
     e = cfg.moe
     d, f = cfg.d_model, e.d_ff_expert
+    lo, hi = experts or (0, e.n_experts)
 
-    def experts(a, b):
-        w = torch.empty((e.n_experts, a, b), dtype=dtype, device=device)
+    def experts_leaf(a, b):
+        w = torch.empty((hi - lo, a, b), dtype=dtype, device=device)
         for i in range(e.n_experts):
-            w[i] = _randn(generator, (a, b), device) * (1.0 / math.sqrt(a))
+            draw = _randn(generator, (a, b), device) * (1.0 / math.sqrt(a))
+            if lo <= i < hi:
+                w[i - lo] = draw
         return w
 
     p = {"router": dense_init(generator, d, e.n_experts, dtype, device=device),
-         "w_up": experts(d, f), "w_gate": experts(d, f), "w_down": experts(f, d)}
+         "w_up": experts_leaf(d, f), "w_gate": experts_leaf(d, f),
+         "w_down": experts_leaf(f, d)}
     if e.n_shared:
         p["shared"] = init_mlp(generator, d, e.n_shared * f, True, dtype, device=device)
     return p
@@ -72,24 +92,33 @@ def capacity(t: int, cfg: ArchConfig) -> int:
     return max(int(math.ceil(t * e.top_k * e.capacity_factor / e.n_experts)), 4)
 
 
-def dispatch(expert_idx: torch.Tensor, cfg: ArchConfig):
+def _slots(expert_idx: torch.Tensor, n_local: int, e_offset: int, cap: int):
     """The slots of the k*T assignments, k-major (all first choices, then all
-    second ones): (flat experts, slots clipped to the capacity, kept mask,
-    assignments per expert (dropped ones included), capacity)."""
-    n_exp = cfg.moe.n_experts
-    t = expert_idx.shape[0]
-    flat_e = expert_idx.t().reshape(-1)                                # (k*T,)
+    second ones), in the ``n_local`` experts e_offset..: (flat local experts,
+    clipped to the range; slots, clipped to ``cap``; kept mask; assignments
+    per local expert, dropped ones included). An assignment to an expert out
+    of the range sorts after every local one, takes no slot and is not kept."""
+    flat_e = expert_idx.t().reshape(-1) - e_offset                    # (k*T,)
+    in_range = (flat_e >= 0) & (flat_e < n_local)
+    flat_e = torch.clamp(flat_e, 0, n_local - 1)
     # a scatter, not bincount: bincount on a CUDA tensor waits for the device
-    counts = torch.zeros(n_exp, dtype=flat_e.dtype, device=flat_e.device).scatter_add_(
-        0, flat_e, torch.ones_like(flat_e))
-    cap = capacity(t, cfg)
-    order = torch.argsort(flat_e, stable=True)
+    counts = torch.zeros(n_local, dtype=flat_e.dtype, device=flat_e.device).scatter_add_(
+        0, flat_e, in_range.to(flat_e.dtype))
+    order = torch.argsort(torch.where(in_range, flat_e, n_local), stable=True)
     starts = torch.cumsum(counts, 0) - counts
     slot_sorted = torch.arange(flat_e.shape[0], device=flat_e.device) - starts[flat_e[order]]
     slot = torch.empty_like(slot_sorted)
     slot[order] = slot_sorted
-    keep = slot < cap
-    return flat_e, torch.clamp(slot, 0, cap - 1), keep, counts, cap
+    keep = in_range & (slot < cap)
+    return flat_e, torch.clamp(slot, 0, cap - 1), keep, counts
+
+
+def dispatch(expert_idx: torch.Tensor, cfg: ArchConfig):
+    """The dense dispatch's slots: (flat experts, slots clipped to the
+    capacity, kept mask, assignments per expert (dropped ones included),
+    capacity)."""
+    cap = capacity(expert_idx.shape[0], cfg)
+    return (*_slots(expert_idx, cfg.moe.n_experts, 0, cap), cap)
 
 
 def _experts(buffers: torch.Tensor, p, use_kernel: bool) -> torch.Tensor:
@@ -108,29 +137,80 @@ def _experts(buffers: torch.Tensor, p, use_kernel: bool) -> torch.Tensor:
 
 def moe_mlp(x: torch.Tensor, p, cfg: ArchConfig, *, use_kernel: bool = False):
     """x (B, S, d) -> (y (B, S, d), aux loss, dropped assignments (a 0-d
-    tensor, so that no call waits for the device))."""
+    tensor, so that no call waits for the device)). Expert-parallel when the
+    installed activation specs name an ``_ep_mesh``."""
+    mesh_axis = ep_mesh()
+    if mesh_axis is not None:
+        return _moe_mlp_ep(x, p, cfg, *mesh_axis, use_kernel=use_kernel)
     e = cfg.moe
     b, s, d = x.shape
     t = b * s
-    cd = x.dtype
     xf = x.reshape(t, d)
     _, probs, gate_vals, expert_idx = route(xf, p["router"], cfg, use_kernel=use_kernel)
-    flat_e, slot, keep, counts, cap = dispatch(expert_idx, cfg)
+    y, counts, keep = _expert_compute(xf, p, cfg, e.n_experts, 0, gate_vals, expert_idx,
+                                      capacity(t, cfg), use_kernel=use_kernel)
     # Switch-style load-balance loss: E * sum_e f_e * p_e
     aux = e.n_experts * torch.sum(probs.mean(0) * counts.float()) / (t * e.top_k)
-
-    buf_idx = flat_e * cap + slot                                      # (k*T,)
-    xk = xf.repeat(e.top_k, 1) * keep[:, None].to(cd)
-    buffers = torch.zeros((e.n_experts * cap, d), dtype=cd, device=x.device)
-    buffers.index_add_(0, buf_idx, xk)
-    out = _experts(buffers.reshape(e.n_experts, cap, d), p, use_kernel).reshape(-1, d)
-
-    # gather back and combine with the renormalised gates
-    gates = keep.to(cd) * gate_vals.t().reshape(-1).to(cd)
-    y = (out[buf_idx] * gates[:, None]).reshape(e.top_k, t, d).sum(0)
     if "shared" in p:
         y = y + mlp(xf, p["shared"], "silu", use_kernel=use_kernel)
     return y.reshape(b, s, d), aux, (~keep).sum()
+
+
+def _expert_compute(xf: torch.Tensor, p, cfg: ArchConfig, n_local: int, e_offset: int,
+                    gate_vals: torch.Tensor, expert_idx: torch.Tensor, capacity: int, *,
+                    use_kernel: bool = False):
+    """Dispatch xf (T, d) to the ``n_local`` experts e_offset.. of ``p``'s
+    expert leaves, run them and combine -> (y (T, d), assignments per local
+    expert (dropped ones included), kept mask (k*T,)). An assignment to
+    another rank's expert is out of range: it sorts after every local one,
+    takes no slot and adds nothing."""
+    k = cfg.moe.top_k
+    t, d = xf.shape
+    cd = xf.dtype
+    flat_e, slot, keep, counts = _slots(expert_idx, n_local, e_offset, capacity)
+    buf_idx = flat_e * capacity + slot                                # (k*T,)
+
+    xk = xf.repeat(k, 1) * keep[:, None].to(cd)
+    buffers = torch.zeros((n_local * capacity, d), dtype=cd, device=xf.device)
+    buffers.index_add_(0, buf_idx, xk)
+    out = _experts(buffers.reshape(n_local, capacity, d), p, use_kernel).reshape(-1, d)
+    gates = keep.to(cd) * gate_vals.t().reshape(-1).to(cd)
+    return (out[buf_idx] * gates[:, None]).reshape(k, t, d).sum(0), counts, keep
+
+
+def _moe_mlp_ep(x: torch.Tensor, p, cfg: ArchConfig, mesh, axis: str, *,
+                use_kernel: bool = False):
+    """Expert-parallel ``moe_mlp`` over ``mesh``'s ``axis``: this rank holds
+    (``p``'s expert leaves) and runs experts [r n_local, (r + 1) n_local) of
+    its index r; the router, top-k and shared expert are replicated. The
+    partial y is all-reduced in fp32; the aux loss from the local slice of
+    the importance times the local counts, all-reduced with the dropped
+    assignments in one fp32 sum."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in [x, *tree.leaves(p)]):
+        raise NotImplementedError("expert parallelism runs forward only: its all-reduces "
+                                  "have no backward; call it under torch.no_grad()")
+    e = cfg.moe
+    group, ep, rank = axis_group(mesh, axis)
+    if e.n_experts % ep:
+        raise ValueError(f"{e.n_experts} experts do not split over {ep} ranks")
+    n_local = e.n_experts // ep
+    if p["w_up"].shape[0] != n_local:
+        raise ValueError(f"rank {rank} of {ep} holds {p['w_up'].shape[0]} experts; expert "
+                         f"parallelism expects its {n_local} (init_moe_mlp(experts=...))")
+    b, s, d = x.shape
+    t = b * s
+    xf = x.reshape(t, d)
+    _, probs, gate_vals, expert_idx = route(xf, p["router"], cfg, use_kernel=use_kernel)
+    y, counts, keep = _expert_compute(xf, p, cfg, n_local, rank * n_local, gate_vals,
+                                      expert_idx, capacity(t, cfg), use_kernel=use_kernel)
+    y = all_reduce(y.float(), group).to(x.dtype)
+    me_local = probs.mean(0)[rank * n_local:(rank + 1) * n_local]
+    sums = all_reduce(torch.stack([torch.sum(me_local * counts.float()),
+                                   (counts.sum() - keep.sum()).float()]), group)
+    aux = e.n_experts * sums[0] / (t * e.top_k)
+    if "shared" in p:
+        y = y + mlp(xf, p["shared"], "silu", use_kernel=use_kernel)
+    return y.reshape(b, s, d), aux, sums[1].long()
 
 
 def init_block(generator: torch.Generator, cfg: ArchConfig, dtype=torch.float32, *,

@@ -1,1 +1,2 @@
-"""Execution schedules of the port: the GPipe microbatch pipeline."""
+"""Parallel execution of the port: the GPipe pipeline (one device or a stage
+mesh), collectives, activation specs and sharding rules."""

@@ -1,17 +1,55 @@
-"""int8 gradient compression with error feedback.
+"""int8 gradient compression with error feedback, and its all-reduce.
 
-The counterpart of the part of ``repro/parallel/collectives.py`` that the
-Trainer's ``grad_compression`` reaches: per-tensor symmetric int8
-quantization, and ``compress_grads``, which returns the grads in their
+The counterpart of ``repro/parallel/collectives.py``: per-tensor symmetric
+int8 quantization; ``compress_grads``, which returns the grads in their
 dequantized form (so the optimizer path is unchanged) and the new error
-feedback. ``compressed_psum`` and the rest of the module wait for the
-distributed slice (ROADMAP.md queue 1 item 11).
+feedback (the Trainer's ``grad_compression``); and ``compressed_psum``,
+where the int8 payload is what the all-reduce moves: each rank quantizes
+``g + err`` with its own scale, the int8 values are summed as int32 and the
+scales reduced by max, and the sum is dequantized with the max scale.
+
+``on_host`` picks the transport of a process group from its backend, before
+anything is sent: gloo moves host copies of device tensors, NCCL moves the
+device tensors themselves. ``axis_group`` and ``axis_sizes`` read a mesh
+axis's process group and the axes' sizes; ``axis_sizes`` also takes a plain
+``{axis: size}`` mapping, so that the sharding rules can be checked for a
+mesh wider than the ranks at hand.
 """
 from __future__ import annotations
 
+from typing import Mapping
+
 import torch
+import torch.distributed as dist
 
 from repro_torch.tree import map_tree
+
+
+def axis_sizes(mesh) -> dict[str, int]:
+    """{axis name: size} of a ``DeviceMesh`` or of a mapping that stands for one."""
+    if isinstance(mesh, Mapping):
+        return dict(mesh)
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def axis_group(mesh, axis: str):
+    """(process group, size, this rank's index) along one axis of a ``DeviceMesh``."""
+    names = mesh.mesh_dim_names
+    if axis not in names:
+        raise ValueError(f"mesh axes {names} hold no axis {axis!r}")
+    d = names.index(axis)
+    return mesh.get_group(d), mesh.size(d), mesh.get_local_rank(d)
+
+
+def on_host(group) -> bool:
+    """Whether collectives of ``group`` move host copies (gloo) or device
+    tensors (NCCL); any other backend raises."""
+    backend = dist.get_backend(group)
+    if backend == "gloo":
+        return True
+    if backend == "nccl":
+        return False
+    raise ValueError(f"no transport for process-group backend {backend!r}")
 
 
 def quantize_int8(g: torch.Tensor):
@@ -30,6 +68,15 @@ def init_error_feedback(params):
     return map_tree(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
 
 
+def _unzip(pairs):
+    """A tree whose leaves became (a, b) pairs -> (tree of a, tree of b). The
+    grads' trees are nested dicts."""
+    def pick(tree, i):
+        return {k: pick(v, i) for k, v in tree.items()} if isinstance(tree, dict) else tree[i]
+
+    return pick(pairs, 0), pick(pairs, 1)
+
+
 def compress_grads(grads, err):
     """grads + err -> (quantized grads in dequantized form, new err)."""
     def one(g, e):
@@ -38,8 +85,33 @@ def compress_grads(grads, err):
         deq = dequantize_int8(q, scale)
         return deq.to(g.dtype), acc - deq
 
-    def pick(tree, i):  # the grads' trees are nested dicts; each leaf became a pair
-        return {k: pick(v, i) for k, v in tree.items()} if isinstance(tree, dict) else tree[i]
+    return _unzip(map_tree(one, grads, err))
 
-    pairs = map_tree(one, grads, err)
-    return pick(pairs, 0), pick(pairs, 1)
+
+def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``t`` reduced over the ranks of ``group``, on ``t``'s device; ``t``
+    itself is left as it was (a host copy moves under gloo, a device copy
+    under NCCL)."""
+    buf = t.detach().to("cpu" if on_host(group) else t.device, copy=True)
+    dist.all_reduce(buf, op=op, group=group)
+    return buf.to(t.device)
+
+
+def compressed_psum(grads, group, err):
+    """Sum ``grads`` over the ranks of ``group`` with int8 on the wire:
+    -> (the sum, in each grad's dtype; the new error feedback).
+
+    Per leaf: ``acc = g + err`` in fp32 is quantized with this rank's scale;
+    the int8 values are all-reduced as int32 (SUM) and the scales by MAX;
+    the sum is the int32 total times the max scale. The new error is
+    ``acc - dequantize(q, scale)`` with this rank's own scale.
+    """
+    def one(g, e):
+        acc = g.float() + e
+        q, scale = quantize_int8(acc)
+        total = all_reduce(q.to(torch.int32), group)
+        scale_max = all_reduce(scale.reshape(1), group, dist.ReduceOp.MAX)[0]
+        deq = total.float() * scale_max
+        return deq.to(g.dtype), acc - dequantize_int8(q, scale)
+
+    return _unzip(map_tree(one, grads, err))

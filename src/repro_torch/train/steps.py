@@ -14,8 +14,8 @@ the params and its state in place (``repro_torch.optim.adamw``).
   entry (the gradients flow back through the cast to the fp32 weights);
 * ``constrain_grads`` — pin the gradients' shardings to the params'. One
   card has no shardings, so it raises ``NotImplementedError`` rather than
-  be ignored: it waits for the distributed slice (ROADMAP.md queue 1
-  item 11).
+  be ignored: it waits for the sharded train step (``build_step`` on a
+  mesh, ROADMAP.md queue 1 item 11).
 """
 from __future__ import annotations
 
