@@ -216,7 +216,32 @@ any failure raises and exits non-zero.
       the host, bit for bit. It prints the backend and transport, each
       rank's walls (4 processes time-sharing one card: no multi-card
       number) and peak memory.
-  Phases M-Q print their walls, tokens/s and peak memory; each draws from
+  (R) The sharded steps on a DTensor mesh: R_RANKS = 4 ranks spawned after
+      Q on cuda:0 over gloo, a (data 2, model 2) mesh (DTensor's
+      collectives run blocking: gloo's functional-collective wait ends
+      the process on this machine). The parent first computes each
+      step's one-device result on the same seeded weights and batches and
+      frees the card. (R0) redistributions of a bf16 tensor on the card
+      bit-equal to the source. (R1) StarCoder2-3B at full width and depth,
+      bf16, 4 x 512, through ``build_step(prefill, mesh=)``: 181 matmul
+      (wgmma), 61 RMSNorm, 30 flash (wgmma) launches a rank at the local
+      shapes (M = 1024 rows; column-parallel products split N,
+      row-parallel ones K; flash on 2 batch rows and 12 of 24 heads over
+      1 of 2 KV heads), no DTensor at any launch, the logits within 2e-2
+      of the one-device build_step's; the collectives by kind. (R2) 8
+      decode ticks of 4 slots on a sequence-sharded cache, teacher-forced
+      on the one-device run's tokens: 181 / 61 a tick a rank at M = 2,
+      logits within 2e-2, the argmax equal to one device's wherever the
+      top-2 margin exceeds twice the measured error. (R3) 2 train steps
+      (fp32 masters and compute, the dtype of the 2e-4 gate; plain route):
+      loss, grad norm and every updated param within 2e-4 of the
+      one-device steps; no kernel launch. (R4) Kimi-K2's MoE MLP at full width with 32 of its 384
+      experts (8 a rank), fp32, expert-parallel with a backward: the
+      gradients of the input and of every leaf within 2e-4 of the dense
+      route's autograd. (R5) the Trainer at ``.reduced()`` on a (4, 1)
+      mesh, 4 steps checkpointed after step 3, restored onto (2, 2) bit
+      for bit, and its next loss within 2e-4 of the (4, 1) run's.
+  Phases M-R print their walls, tokens/s and peak memory; each draws from
   a generator of its own.
 
 Then it holds the bf16 conv of VGG-16 to cuDNN in the same run (the sum of
@@ -229,7 +254,7 @@ prefill, back to back, to at most 1.05x F.rms_norm's (the single-call and
 decode sums printed), and the bf16 SSD at Zamba2's prefill shape, back to
 back, to at most 10x its bytes bound. Its last two
 lines are the kernel summary (one JSON object; the conv, matmul, RMSNorm
-and flash entries carry the launches of phases M-Q by path) and the result
+and flash entries carry the launches of phases M-R by path) and the result
 ``{"ok": true, "device": {...}}``. There is no CPU fallback: without a CUDA
 device it exits non-zero and prints no result.
 
@@ -238,6 +263,11 @@ device it exits non-zero and prints no result.
 runs phases C and M (what phase Q is held to) and Q alone, with the same
 gates, and prints Q's wall but neither summary line: to compare phase Q
 of two trees in one call, run each tree's script in turn.
+
+    python3 chip_smoke.py --r-only
+
+runs phase R alone (it computes its own references), with its gates,
+and prints R's wall but neither summary line.
 """
 from __future__ import annotations
 
@@ -266,7 +296,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
 from repro_torch.core import screen  # noqa: E402
 from repro_torch.core.hw_specs import FPGAS  # noqa: E402
-from repro_torch.core.netinfo import _B, vgg16, vgg19  # noqa: E402
+from repro_torch.core.netinfo import TABLE1_NETS, _B, vgg16, vgg19  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, TokenPipeline  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.conv2d.conv2d import plan_for as conv_plan_for  # noqa: E402
@@ -288,6 +318,7 @@ from repro_torch.kernels.ssd.ops import ssd  # noqa: E402
 from repro_torch.kernels.ssd.ssd import plan_for as ssd_plan_for  # noqa: E402
 from repro_torch.kernels.ssd.ref import ssd_ref  # noqa: E402
 from repro_torch.launch.mesh import make_local_mesh, make_mesh, spawn_ranks  # noqa: E402
+from repro_torch.launch.specs import make_batch  # noqa: E402
 from repro_torch.models import (api, encdec, layers, moe, recurrent, ssm,  # noqa: E402
                                 transformer)
 from repro_torch.models.cnn import (HybridPlan, forward, hybrid_forward,  # noqa: E402
@@ -299,8 +330,8 @@ from repro_torch.serve.quant import (dequantize_params, quantize_params,  # noqa
                                      storage_bytes)
 from repro_torch.serve.scheduler import ContinuousBatcher, Request  # noqa: E402
 from repro_torch.train.hybrid import HybridLMPlan, hybrid_lm_forward  # noqa: E402
-from repro_torch.train.steps import build_step, cast_bf16  # noqa: E402
-from repro_torch.train.trainer import TrainConfig, Trainer  # noqa: E402
+from repro_torch.train.steps import build_step, cast_bf16, init_params_on_mesh  # noqa: E402
+from repro_torch.train.trainer import TrainConfig, Trainer, restore_trainer_state  # noqa: E402
 
 # H100 SXM published peaks (dense): fp32 outside the tensor cores, bf16 on
 # them, and HBM3 bandwidth.
@@ -1487,15 +1518,18 @@ FRAC_LO, FRAC_HI = 0.05, 0.95
 
 def screen_grid() -> tuple[list, list]:
     """(cells, tables) of the phase J grid: VGG-16 and VGG-19 (as the campaign
-    builds them, no FC) at each input x board x precision."""
+    builds them, no FC) at each input, then every net of the paper's Table 1
+    (``TABLE1_NETS``) at its native input; each x board x precision."""
+    nets = [(name, h, build(h)) for name, build in
+            (("vgg16", vgg16), ("vgg19", lambda h: vgg19(h, with_fc=False)))
+            for h in SCREEN_INPUTS]
+    nets += [(name, 0, build()) for name, build in TABLE1_NETS.items()]
     cells, tables = [], []
-    for name, build in (("vgg16", vgg16), ("vgg19", lambda h: vgg19(h, with_fc=False))):
-        for h in SCREEN_INPUTS:
-            net = build(h)
-            for fp in SCREEN_FPGAS:
-                for prec in SCREEN_PRECISIONS:
-                    cells.append((name, h, fp, prec, len(net.major_layers)))
-                    tables.append(screen.cell_tables(net, FPGAS[fp], prec, prec))
+    for name, h, net in nets:
+        for fp in SCREEN_FPGAS:
+            for prec in SCREEN_PRECISIONS:
+                cells.append((name, h, fp, prec, len(net.major_layers)))
+                tables.append(screen.cell_tables(net, FPGAS[fp], prec, prec))
     return cells, tables
 
 
@@ -1529,7 +1563,9 @@ def phase_j() -> dict:
         cpu.append((time.perf_counter() - t0) * 1e3)
     cpu_ms = statistics.median(cpu)
     rows = len(cells) * SCREEN_N
-    print(f"J float64 screen {len(cells)} cells x {SCREEN_N} candidates ({rows} rows): equal to "
+    table1 = sum(c[1] == 0 for c in cells)
+    print(f"J float64 screen {len(cells)} cells ({len(cells) - table1} VGG grid, {table1} "
+          f"Table 1 nets at their native inputs) x {SCREEN_N} candidates ({rows} rows): equal to "
           f"the CPU bit for bit; {ms:.3f} ms a call (median, CUDA events, the host copies in and "
           f"out included; {rows / ms * 1e3:.4g} candidates/s), {device_ms:.3f} ms on the device "
           f"alone ({rows / device_ms * 1e3:.4g} candidates/s); CPU {cpu_ms:.3f} ms a call "
@@ -2595,6 +2631,533 @@ def phase_q(keep: dict) -> dict:
     return q_paths(results)
 
 
+# ---------------------------------------------------------------------------
+# Phase R: the sharded steps on a DTensor mesh (4 gloo ranks on the one card)
+# ---------------------------------------------------------------------------
+
+R_RANKS = 4
+R_BACKEND = "gloo"  # NCCL refuses two ranks on one device ("Duplicate GPU detected")
+R_TIMEOUT = 600  # seconds: any collective of the ranks' group (weights move through host memory)
+R_JOIN = 1200  # seconds: the whole of phase R's ranks
+R_SEED = 21
+R_PREFILL = ShapeSpec("r_prefill", "prefill", PREFILL_SEQ, PREFILL_BATCH)
+R_DECODE = ShapeSpec("r_decode", "decode", 64, SLOTS)  # a 64-slot cache, 32 a rank on `model`
+R_TICKS = 8
+R_TRAIN = ShapeSpec("r_train", "train", PREFILL_SEQ, PREFILL_BATCH)
+R_TRAIN_STEPS = 2
+R_EP_EXPERTS = 32  # of Kimi-K2's 384: the dense reference's fp32 weights and grads, 11.3 GB
+R_AUX_WEIGHT = 0.01
+R_TRAINER = ShapeSpec("r_trainer", "train", 64, 8)
+R_TRAINER_STEPS = 4  # checkpoints after step 3 (restored onto the other mesh) and step 4
+R_TRAINER_CKPT = 3
+
+
+def r_ep_config():
+    """Kimi-K2's MoE MLP at full width (d_model, expert width, top-k, the
+    shared expert as published), one layer, R_EP_EXPERTS experts."""
+    cfg = get_config(MOE_ARCH)
+    return dataclasses.replace(cfg, n_layers=1,
+                               moe=dataclasses.replace(cfg.moe, n_experts=R_EP_EXPERTS))
+
+
+def r_ep_inputs(gen, cfg, experts=None):
+    """The MoE MLP's seeded fp32 weights (``experts``: a rank's range), then
+    its input and the loss's weights, drawn after them on every rank."""
+    p = moe.init_moe_mlp(gen, cfg, torch.float32, device="cuda", experts=experts)
+    shape = (PREFILL_BATCH, PREFILL_SEQ, cfg.d_model)
+    return p, torch.randn(shape, generator=gen, device="cuda"), \
+        torch.randn(shape, generator=gen, device="cuda")
+
+
+def r_ep_grads(p, x, c, cfg) -> dict:
+    """Autograd of sum(y * c) + R_AUX_WEIGHT * aux through moe_mlp (the
+    plain route): {"x": dx, leaf path: its gradient}."""
+    leaves = dict(tree.flatten(p))
+    for t in [x, *leaves.values()]:
+        t.requires_grad_()
+    y, aux, _ = moe.moe_mlp(x, p, cfg)
+    grads = torch.autograd.grad(torch.sum(y * c) + R_AUX_WEIGHT * aux, [x, *leaves.values()])
+    return dict(zip(["x", *leaves], grads))
+
+
+def r_references(tmp: str) -> dict:
+    """The one-device result of each step, on the seeded weights and batches
+    the ranks draw, saved to ``tmp`` for them; everything on the card is
+    freed after each."""
+    cfg, out = get_config(LM_ARCH), {}
+    # R1, R2: bf16 weights, build_step's prefill and 8 greedy decode ticks
+    params = api.init_params(cfg, generator=torch.Generator(device="cuda").manual_seed(R_SEED),
+                             device="cuda", dtype=torch.bfloat16)
+    batch = make_batch(cfg, R_PREFILL, seed=R_SEED, device="cuda")
+    step = build_step(cfg, R_PREFILL, device="cuda")
+    logits, got, ms = timed_counted(lambda: step(params, batch), 2)
+    out["r1"] = {"launches": got, "ms": ms}
+    torch.save(logits.cpu(), os.path.join(tmp, "r1.pt"))
+    del logits
+    step = build_step(cfg, R_DECODE, device="cuda")
+    cache = api.init_cache(cfg, SLOTS, R_DECODE.seq_len, device="cuda")
+    toks, inputs, ticks, walls = batch["tokens"][:SLOTS, :1], [], [], []
+    for i in range(R_TICKS):
+        pos = torch.full((SLOTS,), i, dtype=torch.int32, device="cuda")
+        (lg, cache), got, ms = timed_counted(lambda: step(params, cache, toks, pos))
+        inputs.append(toks.cpu())
+        ticks.append(lg.cpu())
+        walls.append(ms)
+        toks = lg.argmax(-1, keepdim=True).to(torch.int32)
+    torch.save({"inputs": inputs, "logits": ticks}, os.path.join(tmp, "r2.pt"))
+    out["r2"] = {"launches": got, "ms": statistics.median(walls)}
+    del params, cache, batch
+    torch.cuda.empty_cache()
+
+    # R3: fp32 master weights, build_step's train step (phase K's code path)
+    # computing in fp32, the dtype of R3's 2e-4 gate
+    gen = torch.Generator(device="cuda").manual_seed(R_SEED + 1)
+    params = api.init_params(cfg, generator=gen, device="cuda")
+    opt = adamw.init(params)
+    batch = make_batch(cfg, R_TRAIN, seed=R_SEED + 1, device="cuda")
+    step, losses = build_step(cfg, R_TRAIN, device="cuda", compute_dtype=torch.float32), []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(R_TRAIN_STEPS):
+        (params, opt, loss, gnorm), got, ms = timed_counted(lambda: step(params, opt, batch))
+        losses.append((loss.item(), gnorm.item(), ms))
+    out["r3"] = {"losses": losses, "launches": got, "peak_gb": peak_gb()}
+    del opt
+    torch.save({k: v.cpu() for k, v in tree.flatten(params)}, os.path.join(tmp, "r3.pt"))
+    del params, batch
+    torch.cuda.empty_cache()
+
+    # R4: the dense route's autograd over all R_EP_EXPERTS experts
+    ecfg = r_ep_config()
+    p, x, c = r_ep_inputs(torch.Generator(device="cuda").manual_seed(R_SEED + 2), ecfg)
+    grads = r_ep_grads(p, x, c, ecfg)
+    torch.save({k: g.cpu() for k, g in grads.items()}, os.path.join(tmp, "r4.pt"))
+    del p, x, c, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def r_probe(mesh) -> dict:
+    """R0: DTensor redistributions of a seeded bf16 tensor on cuda:0 over the
+    ranks' backend, each against the source bit for bit, and the
+    placements of a DTensor matmul."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
+
+    gen = torch.Generator(device="cuda").manual_seed(R_SEED)
+    src = torch.randn(8, 12, generator=gen, device="cuda").to(torch.bfloat16)
+    out = {}
+    for name, (a, b) in {"S0->R": ((Shard(0), Shard(0)), (Replicate(), Replicate())),
+                         "R->S1": ((Replicate(), Replicate()), (Shard(1), Shard(1))),
+                         "S0->S1": ((Shard(0), Replicate()), (Shard(1), Replicate())),
+                         "S0S1->S1S0": ((Shard(0), Shard(1)), (Shard(1), Shard(0)))}.items():
+        d = distribute_tensor(src, mesh, a, src_data_rank=None).redistribute(mesh, b)
+        out[name] = d.to_local().device == src.device and torch.equal(d.full_tensor(), src)
+    d = DTensor.from_local(src.clone(), mesh, (Partial(), Replicate()), run_check=False)
+    d = d.redistribute(mesh, (Shard(0), Replicate()))
+    out["P->S0"] = d.to_local().device == src.device and torch.equal(d.full_tensor(), 2 * src)
+    a = distribute_tensor(src.float(), mesh, (Shard(0), Shard(1)), src_data_rank=None)
+    b = distribute_tensor(src.float().t().contiguous(), mesh, (Replicate(), Shard(0)),
+                          src_data_rank=None)
+    out["matmul"] = str(tuple((a @ b).placements))
+    return out
+
+
+class LaunchShapes:
+    """Wraps the ctypes launchers of the matmul, RMSNorm and flash kernels in
+    this process: each launch's tensor shapes are counted, and a DTensor at
+    a launch raises (``refuse_dtensor`` refuses one before; this holds the
+    path to it)."""
+
+    def __init__(self):
+        from repro_torch.kernels.flash_attention import ops as flash_ops
+        from repro_torch.kernels.matmul import ops as matmul_ops
+        from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
+
+        self.shapes = {"matmul": {}, "rmsnorm": {}, "flash_attention": {}}
+        for mod, attr, name, n in ((matmul_ops, "launch", "matmul", 2),
+                                   (rmsnorm_ops, "rmsnorm_rows", "rmsnorm", 1),
+                                   (flash_ops, "launch", "flash_attention", 2)):
+            setattr(mod, attr, self._wrap(getattr(mod, attr), name, n))
+
+    def _wrap(self, fn, name: str, n: int):
+        from torch.distributed.tensor import DTensor
+
+        def launch(*args, **kw):
+            if any(isinstance(a, DTensor) for a in args):
+                raise RuntimeError(f"a DTensor reached the {name} kernel's launch")
+            key = tuple(tuple(a.shape) for a in args[:n])
+            self.shapes[name][key] = self.shapes[name].get(key, 0) + 1
+            return fn(*args, **kw)
+
+        return launch
+
+    def take(self) -> dict:
+        out = {k: dict(v) for k, v in self.shapes.items()}
+        for v in self.shapes.values():
+            v.clear()
+        return out
+
+
+def local_err(dt, ref: torch.Tensor) -> float:
+    """max |this rank's shard of ``dt`` - the same slice of ``ref``| (``ref``
+    the global tensor, on the host)."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    shape, offset = compute_local_shape_and_global_offset(dt.shape, dt.device_mesh,
+                                                          dt.placements)
+    part = ref[tuple(slice(o, o + s) for o, s in zip(offset, shape))]
+    return (dt.to_local().float() - part.cuda().float()).abs().max().item()
+
+
+def r_sharded_counted(fn, launch_shapes, reps: int = 1):
+    """timed_counted of a sharded call, with its collectives by kind
+    (``CommDebugMode``) and its launches' shapes."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    comm = CommDebugMode()
+    with comm:
+        out, got, ms = timed_counted(fn, reps)
+    comms = {str(k).split(".")[-1]: v // reps for k, v in comm.get_comm_counts().items()}
+    shapes = {k: {s: n // reps for s, n in v.items()} for k, v in launch_shapes.take().items()}
+    return out, got, ms, comms, shapes
+
+
+def r_rank(rank: int, world: int, tmp: str) -> dict:
+    """Phase R on one rank of ``world``, all on cuda:0: R0 the probe, R1 the
+    sharded prefill, R2 decode ticks, R3 train steps, R4 expert parallelism
+    with a backward, R5 the Trainer across meshes. Returns this rank's
+    launches, local shapes, collectives, errors, walls and peaks; the
+    parent checks them."""
+    import logging
+
+    from torch.distributed.tensor import DTensor
+
+    # DTensor warns at every (Partial, Partial) -> Replicate that a 2-D mesh
+    # takes two all-reduces; CommDebugMode counts them
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_local_mesh(model=2, device_type="cuda")  # (data 2, model 2)
+    cfg = get_config(LM_ARCH)
+    shapes = LaunchShapes()
+    out = {"r0": r_probe(mesh)}
+
+    # R1: the seeded bf16 weights, each rank keeping its shards (the ranks
+    # draw the whole model in turn: its peak is one rank's at a time)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params_on_mesh(cfg, mesh, seed=R_SEED, dtype=torch.bfloat16)
+    draw_gb = peak_gb()
+    torch.cuda.reset_peak_memory_stats()
+    step = build_step(cfg, R_PREFILL, mesh=mesh)
+    batch = make_batch(cfg, R_PREFILL, seed=R_SEED, device="cuda")
+    logits, got, ms, comms, seen = r_sharded_counted(lambda: step(params, batch), shapes, 2)
+    ref = torch.load(os.path.join(tmp, "r1.pt"))
+    out["r1"] = {"err": local_err(logits, ref), "ref_max": ref.abs().max().item(),
+                 "placements": str(tuple(logits.placements)), "launches": got, "ms": ms,
+                 "comms": comms, "shapes": seen, "peak_gb": peak_gb(), "draw_gb": draw_gb}
+    del logits, ref
+
+    # R2: decode ticks on the one-device run's tokens (teacher-forced)
+    ref = torch.load(os.path.join(tmp, "r2.pt"))
+    step = build_step(cfg, R_DECODE, mesh=mesh)
+    cache = api.init_cache(cfg, SLOTS, R_DECODE.seq_len, device="cuda")
+    ticks = []
+    for i in range(R_TICKS):
+        toks = ref["inputs"][i].cuda()
+        pos = torch.full((SLOTS,), i, dtype=torch.int32, device="cuda")
+        (lg, cache), got, ms, comms, seen = r_sharded_counted(
+            lambda: step(params, cache, toks, pos), shapes)
+        ticks.append({"err": local_err(lg, ref["logits"][i]),
+                      "ref_max": ref["logits"][i].abs().max().item(),
+                      "argmax": lg.full_tensor().argmax(-1).cpu(), "launches": got, "ms": ms,
+                      "comms": comms, "shapes": seen})
+    out["r2"] = {"ticks": ticks, "cache": str(tuple(cache["k"].placements)),
+                 "peak_gb": peak_gb()}
+    del params, cache, ref
+    torch.cuda.empty_cache()
+
+    # R3: fp32 master weights, build_step's train step on the mesh
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params_on_mesh(cfg, mesh, seed=R_SEED + 1)
+    draw_gb = peak_gb()
+    torch.cuda.reset_peak_memory_stats()
+    opt = adamw.init(params)
+    step = build_step(cfg, R_TRAIN, mesh=mesh, compute_dtype=torch.float32)
+    batch = make_batch(cfg, R_TRAIN, seed=R_SEED + 1, device="cuda")
+    losses = []
+    for _ in range(R_TRAIN_STEPS):
+        (params, opt, loss, gnorm), got, ms, comms, _ = r_sharded_counted(
+            lambda: step(params, opt, batch), shapes)
+        losses.append((loss.item(), gnorm.item(), ms))
+    out["r3"] = {"losses": losses, "launches": got, "comms": comms, "peak_gb": peak_gb(),
+                 "draw_gb": draw_gb}
+    del opt
+    ref = torch.load(os.path.join(tmp, "r3.pt"), mmap=True)
+    out["r3"]["errs"] = {k: (local_err(v, ref[k]), ref[k].abs().max().item())
+                         for k, v in tree.flatten(params)}
+    del params, ref
+    torch.cuda.empty_cache()
+
+    # R4: rank r holds experts [r n, (r + 1) n) of the seeded layer; grads of every leaf
+    ecfg = r_ep_config()
+    n_local = R_EP_EXPERTS // world
+    ep = make_mesh((1, world), ("data", "model"), device_type="cuda")
+    lo, hi = rank * n_local, (rank + 1) * n_local
+    p, x, c = r_ep_inputs(torch.Generator(device="cuda").manual_seed(R_SEED + 2), ecfg, (lo, hi))
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with act.activation_specs(dict(act.default_specs(ep), _ep_mesh=(ep, "model"))):
+        grads = r_ep_grads(p, x, c, ecfg)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    ref = torch.load(os.path.join(tmp, "r4.pt"), mmap=True)
+    errs = {}
+    for k, g in grads.items():
+        want = ref[k][lo:hi] if k in ("w_up", "w_gate", "w_down") else ref[k]
+        errs[k] = (g - want.cuda()).abs().max().item() / max(want.abs().max().item(), 1e-30)
+    out["r4"] = {"errs": errs, "ms": ms, "peak_gb": peak_gb(), "experts": hi - lo}
+    del p, x, c, grads, ref
+    torch.cuda.empty_cache()
+
+    # R5: the Trainer on (4, 1), restored onto (2, 2)
+    rcfg, ckpt = get_config(LM_ARCH).reduced(), os.path.join(tmp, "r5")
+    tcfg = TrainConfig(steps=R_TRAINER_STEPS, ckpt_every=R_TRAINER_CKPT, ckpt_dir=ckpt,
+                       log_every=100, compute_dtype="float32")
+    ta = Trainer(rcfg, R_TRAINER, tcfg, mesh=make_mesh((world, 1), ("data", "model"),
+                                                       device_type="cuda"))
+    ta.run()
+    tb = Trainer(rcfg, R_TRAINER, tcfg, mesh=mesh)
+    params, opt = restore_trainer_state(tb, R_TRAINER_CKPT)
+    with np.load(os.path.join(ckpt, f"step_{R_TRAINER_CKPT:08d}", "arrays.npz")) as z:
+        saved = {k: torch.from_numpy(z[k]) for k in z.files}
+    restored = dict(tree.flatten({"params": params, "opt": opt}))
+    exact = sorted(restored) == sorted(saved) and all(
+        (local_err(v, saved[k]) if isinstance(v, DTensor)
+         else (v.cpu() - saved[k]).abs().max().item()) == 0 for k, v in restored.items())
+    _, _, loss, _ = tb.train_step(params, opt, tb._make_batch(R_TRAINER_CKPT))
+    out["r5"] = {"exact": exact, "leaves": len(saved), "losses": [s["loss"] for s in ta.stats],
+                 "loss_b": loss.item(), "placements": str(tuple(
+                     params["blocks"]["attn"]["wq"].placements))}
+    return out
+
+
+def r_local_products(cfg, rows: int) -> dict:
+    """((M, K), (K, N)) -> matmul launches a rank makes in one forward on the
+    (data 2, model 2) mesh: ``rows`` rows a rank; the column-parallel
+    products (wq, wk, wv, w_up, the head) split N over ``model``, the
+    row-parallel ones (wo, w_down) split K."""
+    hd, n = cfg.head_dim, cfg.n_layers
+    out: dict = {}
+
+    def add(k, nn, count):
+        key = ((rows, k), (k, nn))
+        out[key] = out.get(key, 0) + count
+
+    for k, nn in [(cfg.d_model, cfg.n_heads * hd), (cfg.d_model, cfg.n_kv * hd),
+                  (cfg.d_model, cfg.n_kv * hd), (cfg.d_model, cfg.d_ff)]:
+        add(k, nn // 2, n)
+    for k, nn in [(cfg.n_heads * hd, cfg.d_model), (cfg.d_ff, cfg.d_model)]:
+        add(k // 2, nn, n)
+    add(cfg.d_model, cfg.vocab // 2, 1)
+    return out
+
+
+def r_check_shapes(where: str, seen: dict, cfg, rows: int, flash: int) -> None:
+    """The local shapes each kernel saw on one rank: every product at ``rows``
+    rows and its split, every RMSNorm over ``rows`` rows, every flash call
+    on this rank's batch rows and heads."""
+    check(seen["matmul"] == r_local_products(cfg, rows),
+          f"{where}: matmul local shapes {seen['matmul']}")
+    check(seen["rmsnorm"] == {((rows, cfg.d_model),): 2 * cfg.n_layers + 1},
+          f"{where}: rmsnorm local shapes {seen['rmsnorm']}")
+    b = PREFILL_BATCH // 2
+    want = {((b, PREFILL_SEQ, cfg.n_heads // 2, cfg.head_dim),
+             (b, PREFILL_SEQ, cfg.n_kv // 2, cfg.head_dim)): flash} if flash else {}
+    check(seen["flash_attention"] == want,
+          f"{where}: flash local shapes {seen['flash_attention']}")
+
+
+def r_paths(results: list) -> dict:
+    """The launches of R1's prefill and one R2 tick by kernel, summed over the
+    ranks and per rank, with the matmul and flash routes."""
+    paths = {}
+    for name, pick in ((f"{LM_ARCH} prefill, 4 ranks on a (data 2, model 2) mesh (R1)",
+                        lambda r: r["r1"]["launches"]),
+                       (f"{LM_ARCH} decode tick, 4 ranks on a (data 2, model 2) mesh (R2)",
+                        lambda r: r["r2"]["ticks"][-1]["launches"])):
+        by = {}
+        for kernel in ("matmul", "rmsnorm", "flash_attention"):
+            per = [pick(r)[kernel] for r in results]
+            if any(per):
+                by[kernel] = {"launches": sum(per), "launches_per_rank": per}
+                if f"{kernel}_routes" in pick(results[0]):
+                    by[kernel]["launches_by_route"] = {
+                        k: sum(pick(r)[f"{kernel}_routes"][k] for r in results)
+                        for k in pick(results[0])[f"{kernel}_routes"]}
+        paths[name] = by
+    return paths
+
+
+def phase_r() -> dict:
+    """StarCoder2-3B's sharded steps (``build_step(mesh=)``) on a (data 2,
+    model 2) DTensor mesh of R_RANKS processes sharing cuda:0 over gloo: the
+    prefill and decode with the matmul, RMSNorm and flash kernels on each
+    rank's local shards, the train step on the plain route, each held to the
+    one-device step on the same seeded weights and batches; Kimi-K2's MoE MLP
+    expert-parallel with a backward, held to the dense route's autograd;
+    the Trainer checkpointing on (4, 1) and restoring onto (2, 2). The walls
+    are 4 processes time-sharing one card through host memory: no number
+    here speaks of scaling across cards."""
+    cfg = get_config(LM_ARCH)
+    t_ref = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="phase-r-") as tmp:
+        torch.cuda.reset_peak_memory_stats()
+        ref = r_references(tmp)
+        ref_peak = peak_gb()
+        torch.cuda.empty_cache()
+        ref_s = time.perf_counter() - t_ref
+        _build.build_all()  # built in setup: the ranks load the libraries, none builds
+        t0 = time.perf_counter()
+        results = spawn_ranks(r_rank, R_RANKS, backend=R_BACKEND, timeout=R_TIMEOUT,
+                              join_timeout=R_JOIN, args=(tmp,))
+        ranks_s = time.perf_counter() - t0
+        r2_ref = torch.load(os.path.join(tmp, "r2.pt"))
+    r0 = results[0]
+    print(f"R {R_RANKS} ranks on one {torch.cuda.get_device_name(0)} as a (data 2, model 2) "
+          f"DTensor mesh over {R_BACKEND} (NCCL refuses two ranks on one device); references "
+          f"{ref_s:.1f} s (peak {ref_peak:.2f} GB), the ranks {ranks_s:.1f} s (spawn to join). "
+          f"Walls below are {R_RANKS} processes time-sharing one card, not a multi-card number.")
+
+    # R0: redistributions on the card over gloo
+    for rank, r in enumerate(results):
+        check(all(v is True for k, v in r["r0"].items() if k != "matmul")
+              and r["r0"]["matmul"] == "(Shard(dim=0), Partial(sum))",
+              f"R0 rank {rank}: {r['r0']}")
+    print(f"R0 bfloat16 redistributions on cuda:0 over {R_BACKEND}, every rank: "
+          f"{', '.join(k for k in r0['r0'] if k != 'matmul')} bit-equal to the source; a "
+          f"DTensor matmul of (S0, S1) by (R, S0) gives {r0['r0']['matmul']}")
+
+    # R1: the one-device prefill's launches a rank, at the local shapes
+    want = expected_launches(cfg)
+    check_launches("R1 one device", ref["r1"]["launches"], {"wgmma": want["matmul"]},
+                   want["rmsnorm"], want["flash_attention"])
+    rows = PREFILL_BATCH * PREFILL_SEQ // 2
+    for rank, r in enumerate(results):
+        check_launches(f"R1 rank {rank}", r["r1"]["launches"], {"wgmma": want["matmul"]},
+                       want["rmsnorm"], want["flash_attention"])
+        r_check_shapes(f"R1 rank {rank}", r["r1"]["shapes"], cfg, rows, want["flash_attention"])
+    err = max(r["r1"]["err"] for r in results) / r0["r1"]["ref_max"]
+    check(err <= TOL[torch.bfloat16], f"R1: the sharded prefill against one device {err:.3e}")
+    print(f"R1 bfloat16 {LM_ARCH} prefill B={PREFILL_BATCH} S={PREFILL_SEQ} through "
+          f"build_step(prefill, mesh=), kernels on local shards: logits {r0['r1']['placements']}"
+          f" against the one-device build_step {err:.3e}; launches per rank "
+          f"{[r['r1']['launches']['matmul'] for r in results]} matmul (all wgmma), "
+          f"{r0['r1']['launches']['rmsnorm']} rmsnorm, {r0['r1']['launches']['flash_attention']}"
+          f" flash (all wgmma), as one device's; local shapes: matmul M = {rows} "
+          f"{sorted(r0['r1']['shapes']['matmul'].items())}, rmsnorm "
+          f"{r0['r1']['shapes']['rmsnorm']}, flash {r0['r1']['shapes']['flash_attention']}; no "
+          f"DTensor at a launch; collectives a prefill {r0['r1']['comms']}; walls "
+          f"{per_rank(results, 'r1', 'ms')} ms (median of 2; one device {ref['r1']['ms']:.3f} "
+          f"ms); peak {per_rank(results, 'r1', 'peak_gb', 2)} GB (the draw, one rank at a "
+          f"time: {r0['r1']['draw_gb']:.2f} GB)")
+
+    # R2: decode ticks, teacher-forced on the one-device tokens
+    want_tick = expected_launches(cfg, decode=True)
+    errs, same, margin_ok, n = [], 0, True, 0
+    for i in range(R_TICKS):
+        lg = r2_ref["logits"][i]
+        top2 = lg.topk(2, dim=-1).values
+        e = max(r["r2"]["ticks"][i]["err"] for r in results)
+        errs.append(e / results[0]["r2"]["ticks"][i]["ref_max"])
+        for rank, r in enumerate(results):
+            t = r["r2"]["ticks"][i]
+            check_launches(f"R2 rank {rank} tick {i}", t["launches"],
+                           {"wgmma": want_tick["matmul"]}, want_tick["rmsnorm"])
+            r_check_shapes(f"R2 rank {rank} tick {i}", t["shapes"], cfg, SLOTS // 2, 0)
+        got = results[0]["r2"]["ticks"][i]["argmax"]
+        for s in range(SLOTS):
+            n += 1
+            same += int(got[s] == lg[s].argmax())
+            if top2[s, 0] - top2[s, 1] > 2 * e:
+                margin_ok &= bool(got[s] == lg[s].argmax())
+        check(all(torch.equal(r["r2"]["ticks"][i]["argmax"], got) for r in results),
+              f"R2 tick {i}: the ranks' tokens differ")
+    check(max(errs) <= TOL[torch.bfloat16], f"R2: logits against one device {max(errs):.3e}")
+    check(margin_ok, "R2: a token differs from one device's where the top-2 margin exceeds "
+          "twice the logits' error")
+    t0r = r0["r2"]["ticks"]
+    print(f"R2 bfloat16 {LM_ARCH} decode, {SLOTS} slots ({SLOTS // 2} a rank on data), a "
+          f"{R_DECODE.seq_len}-slot cache placed {r0['r2']['cache']}, {R_TICKS} ticks "
+          f"teacher-forced on the one-device tokens: logits against one device max "
+          f"{max(errs):.3e} (per tick {[f'{e:.2e}' for e in errs]}); tokens equal to one "
+          f"device's {same}/{n} (every one whose top-2 margin exceeds twice the error); "
+          f"launches a tick per rank {t0r[-1]['launches']['matmul']} matmul (all wgmma), "
+          f"{t0r[-1]['launches']['rmsnorm']} rmsnorm at M = {SLOTS // 2}; collectives a tick "
+          f"{t0r[-1]['comms']}; tick {statistics.median(t['ms'] for t in t0r):.1f} ms (median "
+          f"of rank 0; one device {ref['r2']['ms']:.3f} ms); peak "
+          f"{per_rank(results, 'r2', 'peak_gb', 2)} GB")
+
+    # R3: train steps against the one-device steps
+    for i, (loss, gnorm, _) in enumerate(ref["r3"]["losses"]):
+        for rank, r in enumerate(results):
+            l_r, g_r, _ = r["r3"]["losses"][i]
+            check(abs(l_r - loss) <= TOL[torch.float32] * abs(loss)
+                  and abs(g_r - gnorm) <= TOL[torch.float32] * abs(gnorm),
+                  f"R3 rank {rank} step {i}: loss {l_r} / {loss}, grad norm {g_r} / {gnorm}")
+    leaf_errs = {k: max(r["r3"]["errs"][k][0] for r in results) / r0["r3"]["errs"][k][1]
+                 for k in r0["r3"]["errs"]}
+    worst = max(leaf_errs, key=leaf_errs.get)
+    check(leaf_errs[worst] <= TOL[torch.float32],
+          f"R3: updated {worst} against one device {leaf_errs[worst]:.3e}")
+    check(all(sum(r["r3"]["launches"][k] for k in WRAPPERS) == 0 for r in results),
+          "R3: a kernel launched in the train step")
+    rel = [(abs(a[0] - b[0]) / abs(b[0]), abs(a[1] - b[1]) / abs(b[1]))
+           for a, b in zip(r0["r3"]["losses"], ref["r3"]["losses"])]
+    print(f"R3 {LM_ARCH} train step through build_step(train, mesh=), fp32 masters, fp32 "
+          f"compute, plain route, B={R_TRAIN.global_batch} S={R_TRAIN.seq_len}, full depth: "
+          f"losses {[round(x[0], 6) for x in r0['r3']['losses']]} against one device "
+          f"{[round(x[0], 6) for x in ref['r3']['losses']]} (relative loss, grad norm "
+          f"{[(f'{a:.2e}', f'{b:.2e}') for a, b in rel]}); updated params against one device "
+          f"max {leaf_errs[worst]:.3e} ({worst}; {len(leaf_errs)} leaves); step "
+          f"{[round(x[2], 1) for x in r0['r3']['losses']]} ms (one device "
+          f"{[round(x[2], 1) for x in ref['r3']['losses']]}); collectives a step "
+          f"{r0['r3']['comms']}; peak in the steps per rank "
+          f"{per_rank(results, 'r3', 'peak_gb', 2)} GB, "
+          f"{sum(r['r3']['peak_gb'] for r in results):.2f} GB summed (the draw, one rank at a "
+          f"time: {r0['r3']['draw_gb']:.2f} GB; one device {ref['r3']['peak_gb']:.2f} GB)")
+
+    # R4: expert-parallel gradients against the dense route's
+    ecfg = r_ep_config()
+    for rank, r in enumerate(results):
+        bad = {k: e for k, e in r["r4"]["errs"].items() if not e <= TOL[torch.float32]}
+        check(not bad, f"R4 rank {rank}: gradients against the dense route {bad}")
+    print(f"R4 float32 {MOE_ARCH} MoE MLP d={ecfg.d_model} expert width "
+          f"{ecfg.moe.d_ff_expert} top-{ecfg.moe.top_k}, {R_EP_EXPERTS} experts (cut from "
+          f"{get_config(MOE_ARCH).moe.n_experts}), {r0['r4']['experts']} a rank, "
+          f"{PREFILL_BATCH * PREFILL_SEQ} tokens, expert-parallel with a backward: the "
+          f"gradients of x and of every leaf against the dense route's autograd, max per rank "
+          f"{[f'{max(r['r4']['errs'].values()):.2e}' for r in results]}; walls "
+          f"{per_rank(results, 'r4', 'ms', 1)} ms; peak {per_rank(results, 'r4', 'peak_gb', 2)}"
+          f" GB")
+
+    # R5: the Trainer on (4, 1), restored onto (2, 2)
+    for rank, r in enumerate(results):
+        q = r["r5"]
+        want_loss = q["losses"][R_TRAINER_CKPT]
+        check(q["exact"], f"R5 rank {rank}: the restore onto (2, 2) is not bit-equal")
+        check(abs(q["loss_b"] - want_loss) <= TOL[torch.float32] * abs(want_loss),
+              f"R5 rank {rank}: step {R_TRAINER_CKPT} on (2, 2) {q['loss_b']} against "
+              f"(4, 1) {want_loss}")
+    q = r0["r5"]
+    print(f"R5 float32 Trainer({LM_ARCH}.reduced(), mesh=(4, 1)) {R_TRAINER_STEPS} steps "
+          f"B={R_TRAINER.global_batch} S={R_TRAINER.seq_len}, losses "
+          f"{[round(x, 6) for x in q['losses']]}; the step-{R_TRAINER_CKPT} checkpoint "
+          f"restored onto (2, 2) ({q['placements']} for wq): {q['leaves']} leaves bit-equal; "
+          f"the next step's loss {q['loss_b']:.6f} against (4, 1)'s "
+          f"{q['losses'][R_TRAINER_CKPT]:.6f}")
+    return r_paths(results)
+
+
 def matmul_floors(rows, hybrid_rows) -> None:
     """The redesigned matmul against torch.matmul in this run, bf16: the
     prefill sum of single calls at most 4x torch.matmul's, the decode tick's
@@ -2692,8 +3255,8 @@ def lm_entries(rows, launches, serving, hybrid_rows, hybrid_launches, hybrid_ser
 
 
 def main() -> int:
-    if sys.argv[1:] not in ([], ["--q-only"]):
-        print("usage: chip_smoke.py [--q-only]", file=sys.stderr)
+    if sys.argv[1:] not in ([], ["--q-only"], ["--r-only"]):
+        print("usage: chip_smoke.py [--q-only | --r-only]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs an NVIDIA GPU",
@@ -2727,6 +3290,11 @@ def main() -> int:
         phase_q(keep)
         print(f"Q wall {time.perf_counter() - t0:.1f} s")
         return 0
+    if sys.argv[1:] == ["--r-only"]:
+        t0 = time.perf_counter()
+        phase_r()
+        print(f"R wall {time.perf_counter() - t0:.1f} s")
+        return 0
     rows = phase_a(gen)
     launches = phase_b(gen)
     keep = {}  # phases C and M leave on the host what phase Q is held to
@@ -2752,7 +3320,7 @@ def main() -> int:
         print(f"{name} wall {time.perf_counter() - t0:.1f} s")
     zoo = {}
     for name, phase in (("M", lambda: phase_m(keep)), ("N", phase_n), ("O", phase_o),
-                        ("P", phase_p), ("Q", lambda: phase_q(keep))):
+                        ("P", phase_p), ("Q", lambda: phase_q(keep)), ("R", phase_r)):
         t0 = time.perf_counter()
         zoo.update(phase())
         torch.cuda.empty_cache()

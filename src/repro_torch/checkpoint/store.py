@@ -19,6 +19,14 @@ array, the bytes and dtype the JAX package writes for its ``ml_dtypes``
 bfloat16 arrays, and read back into a bfloat16 ``like`` leaf (the JAX
 package's own ``restore`` cannot cast that dtype: ROADMAP.md queue 3,
 fault 8).
+
+Sharded trees (DTensor leaves, a Trainer on a mesh) are saved as the
+global arrays: every rank of the default group calls ``save``, each leaf
+is gathered, and rank 0 alone writes, in the layout above. ``restore``
+with ``placements`` (a tree of ``(mesh, placements)`` pairs,
+``parallel.sharding.shardings``; the counterpart of the reference's
+``shardings``) places each global array onto the current mesh, whatever
+mesh wrote it: the elastic-rescale path.
 """
 from __future__ import annotations
 
@@ -30,11 +38,16 @@ import uuid
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
-from repro_torch.tree import flatten, map_with_path
+from repro_torch.parallel.sharding import place
+from repro_torch.tree import flatten, leaves, map_tree, map_with_path
 
 
 def _host(leaf) -> np.ndarray:
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     t = torch.as_tensor(leaf).detach().cpu()
     if t.dtype == torch.bfloat16:  # as the JAX package's bfloat16 arrays land: 2-byte void
         return t.view(torch.int16).numpy().view("V2")
@@ -46,19 +59,31 @@ def _flatten(tree) -> dict[str, np.ndarray]:
 
 
 def save(ckpt_dir: str, step: int, tree, meta: dict | None = None) -> str:
-    """Atomic checkpoint write. Returns the final directory path."""
+    """Atomic checkpoint write. Returns the final directory path. A tree
+    with DTensor leaves is collective: every rank calls it, and it returns
+    once rank 0 has written."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    flat = _flatten(tree)
+    if any(isinstance(leaf, DTensor) for leaf in leaves(tree)):
+        if dist.get_rank() == 0:
+            _write(ckpt_dir, final, step, tree, flat, meta, dist.get_world_size())
+        dist.barrier()
+    else:
+        _write(ckpt_dir, final, step, tree, flat, meta, 1)
+    return final
+
+
+def _write(ckpt_dir: str, final: str, step: int, tree, flat: dict, meta: dict | None,
+           n_devices: int) -> None:
     tmp = final + f".tmp-{uuid.uuid4().hex[:8]}"
     os.makedirs(tmp, exist_ok=True)
-
-    flat = _flatten(tree)
     np.savez(os.path.join(tmp, "arrays.npz"), **flat)
     manifest = {
         "step": step,
         "time": time.time(),
         "keys": sorted(flat.keys()),
         "treedef": [key for key, _ in flatten(tree)],
-        "n_devices": 1,
+        "n_devices": n_devices,
         "meta": meta or {},
     }
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
@@ -76,7 +101,6 @@ def save(ckpt_dir: str, step: int, tree, meta: dict | None = None) -> str:
         f.flush()
         os.fsync(f.fileno())
     os.rename(latest_tmp, os.path.join(ckpt_dir, "LATEST"))
-    return final
 
 
 def latest_step(ckpt_dir: str) -> int | None:
@@ -111,9 +135,11 @@ def _tensor(arr: np.ndarray, like: torch.Tensor, device) -> torch.Tensor:
     return t.to(device=like.device if device is None else device, dtype=like.dtype)
 
 
-def restore(ckpt_dir: str, step: int, like_tree, *, device=None):
+def restore(ckpt_dir: str, step: int, like_tree, *, device=None, placements=None):
     """Load ``step`` into the structure, shapes and dtypes of ``like_tree``,
-    each leaf on ``device`` (by default the like leaf's own)."""
+    each leaf on ``device`` (by default the like leaf's own). ``placements``
+    (a tree of ``(mesh, placements)`` pairs matching ``like_tree``, None for
+    a leaf left plain) reshards each global array onto its mesh."""
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with np.load(os.path.join(d, "arrays.npz")) as z:
         flat = {k: z[k] for k in z.files}
@@ -124,7 +150,11 @@ def restore(ckpt_dir: str, step: int, like_tree, *, device=None):
             raise ValueError(f"{key}: ckpt shape {arr.shape} != {tuple(like.shape)}")
         return _tensor(arr, like, device)
 
-    return map_with_path(leaf, like_tree)
+    tree = map_with_path(leaf, like_tree)
+    if placements is None:
+        return tree
+    return map_tree(lambda t, where: t if where is None else place(t, *where), tree, placements,
+                    is_leaf=lambda x: isinstance(x, torch.Tensor))
 
 
 def meta(ckpt_dir: str, step: int) -> dict:

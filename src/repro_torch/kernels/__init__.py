@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 
 def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
@@ -13,3 +14,14 @@ def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
         raise RuntimeError(f"{name}: the kernel has no backward, and an input requires grad; "
                            f"train with use_kernel=False (models.api.loss_fn does), or call "
                            f"it under torch.no_grad()")
+
+
+def refuse_dtensor(name: str, *tensors: torch.Tensor) -> None:
+    """Raise on a DTensor: its ``data_ptr()`` is 0, so a ctypes launch would
+    read a null pointer. A DTensor reaches a kernel as its local shard,
+    through the wrapper's registered op (``matmul_on_shards``,
+    ``rmsnorm_on_shards``, ``flash_attention_on_shards``)."""
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{name} takes plain tensors, and got a DTensor: a sharded tensor "
+                        f"reaches the kernel as its local shard, through {name}_on_shards "
+                        f"where there is one")

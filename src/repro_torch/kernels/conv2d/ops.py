@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import refuse_grad
+from repro_torch.kernels import refuse_dtensor, refuse_grad
 from .conv2d import ROUTES, launch, plan_for
 from .ref import conv2d_ref
 
@@ -23,6 +23,7 @@ _MAX_GRID_YZ = 65535  # CUDA's limit on grid y (K / 64) and z (N)
 def _check(x, w) -> None:
     if not (isinstance(x, torch.Tensor) and isinstance(w, torch.Tensor)):
         raise TypeError("conv2d takes two tensors")
+    refuse_dtensor("conv2d", x, w)
     if x.dim() != 4 or w.dim() != 4:
         raise ValueError(f"conv2d takes x (N, C, H, W) and w (K, C, R, S); "
                          f"got shapes {tuple(x.shape)} and {tuple(w.shape)}")

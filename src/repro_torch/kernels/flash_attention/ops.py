@@ -12,13 +12,19 @@ the plain version ``attention_ref``. ``flash_attention.launches`` counts
 kernel launches, one per call, and ``flash_attention.launches_by_route``
 splits them by route (``wgmma``, ``simt``).
 It raises when autograd would record the call (``refuse_grad``): the
-kernel has no backward, and training takes the plain route.
+kernel has no backward, and training takes the plain route. It raises on a
+DTensor (``refuse_dtensor``): ``flash_attention_on_shards`` takes DTensors,
+through the op ``repro_torch::flash_attention``, whose sharding strategies
+DTensor reads, so that each rank's kernel runs on its local batch rows and
+heads; ``attn_fn`` takes either.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import register_sharding
 
-from repro_torch.kernels import refuse_grad
+from repro_torch.kernels import refuse_dtensor, refuse_grad
 from .flash_attention import DTYPE_CODES, ROUTES, launch, plan_for
 from .ref import attention_ref
 
@@ -29,6 +35,7 @@ _MAX_GRID_Y = 65535  # CUDA's limit on grid y (B * H)
 def _check(q, k, v, window) -> None:
     if not all(isinstance(t, torch.Tensor) for t in (q, k, v)):
         raise TypeError("flash_attention takes three tensors")
+    refuse_dtensor("flash_attention", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention takes q (B, S, H, hd) and k, v (B, Sk, KV, hd); "
                          f"got shapes {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -77,4 +84,37 @@ def attn_fn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool =
             window: int | None = None) -> torch.Tensor:
     """Adapter matching gqa_attention's ``attn_fn`` hook: returns (B, S, H*hd)."""
     b, s, h, hd = q.shape
-    return flash_attention(q, k, v, causal=causal, window=window).reshape(b, s, h * hd)
+    fn = flash_attention_on_shards if isinstance(q, DTensor) else flash_attention
+    return fn(q, k, v, causal=causal, window=window).reshape(b, s, h * hd)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+              window: int | None) -> torch.Tensor:
+    return flash_attention(q, k, v, causal=causal, window=window)
+
+
+@_flash_op.register_fake
+def _(q, k, v, causal, window):
+    return torch.empty_like(q)
+
+
+@register_sharding(torch.ops.repro_torch.flash_attention.default)
+def _flash_strategies(q, k, v, causal, window):
+    """Per mesh dim: q, k and v split alike over the batch, or over the heads
+    (dim 2) when every mesh dim's size divides the KV heads, so that each
+    rank's query heads meet their own KV groups; or all replicated."""
+    out = [([Shard(0)], [Shard(0), Shard(0), Shard(0), None, None]),
+           ([Replicate()], [Replicate(), Replicate(), Replicate(), None, None])]
+    if all(k.shape[2] % n == 0 for n in q.mesh.shape):
+        out.append(([Shard(2)], [Shard(2), Shard(2), Shard(2), None, None]))
+    return out
+
+
+def flash_attention_on_shards(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                              causal: bool = True, window: int | None = None) -> torch.Tensor:
+    """``flash_attention`` of DTensors of one mesh: each rank's kernel on its
+    local batch rows and heads (one launch a rank, counted in
+    ``flash_attention.launches``)."""
+    refuse_grad("flash_attention", q, k, v)
+    return torch.ops.repro_torch.flash_attention(q, k, v, causal, window)

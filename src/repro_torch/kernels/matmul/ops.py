@@ -8,13 +8,18 @@ picks; a CPU tensor takes the plain version ``matmul_ref``.
 ``matmul.launches`` counts kernel launches, one per call, and
 ``matmul.launches_by_route`` splits them by route (``wgmma``, ``simt``).
 It raises when autograd would record the call (``refuse_grad``): the
-kernel has no backward, and training takes the plain route.
+kernel has no backward, and training takes the plain route. It raises on a
+DTensor (``refuse_dtensor``): ``matmul_on_shards`` takes DTensors, through
+the op ``repro_torch::matmul``, whose sharding strategies DTensor reads, so
+that each rank's kernel runs on its local shards.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import register_sharding
 
-from repro_torch.kernels import refuse_grad
+from repro_torch.kernels import refuse_dtensor, refuse_grad
 from .matmul import DTYPE_CODES, ROUTES, launch, plan_for
 from .ref import matmul_ref
 
@@ -24,6 +29,7 @@ _MAX_M = 65535 * 128  # CUDA's limit on grid y, in 128-row tiles
 def _check(a, b, out_dtype) -> None:
     if not (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)):
         raise TypeError("matmul takes two tensors")
+    refuse_dtensor("matmul", a, b)
     if a.dim() != 2 or b.dim() != 2:
         raise ValueError(f"matmul takes a (M, K) and b (K, N); "
                          f"got shapes {tuple(a.shape)} and {tuple(b.shape)}")
@@ -62,3 +68,32 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
 
 matmul.launches = 0
 matmul.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+@torch.library.custom_op("repro_torch::matmul", mutates_args=())
+def _matmul_op(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype | None) -> torch.Tensor:
+    return matmul(a, b, out_dtype=out_dtype)
+
+
+@_matmul_op.register_fake
+def _(a, b, out_dtype):
+    return a.new_empty((a.shape[0], b.shape[1]), dtype=out_dtype or a.dtype)
+
+
+@register_sharding(torch.ops.repro_torch.matmul.default)
+def _matmul_strategies(a, b, out_dtype):
+    """Per mesh dim: a's rows -> out's rows; b's columns -> out's columns;
+    a's columns with b's rows -> a partial sum; or all replicated."""
+    return [([Shard(0)], [Shard(0), Replicate(), None]),
+            ([Shard(1)], [Replicate(), Shard(1), None]),
+            ([Partial()], [Shard(1), Shard(0), None]),
+            ([Replicate()], [Replicate(), Replicate(), None])]
+
+
+def matmul_on_shards(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
+    """``matmul`` of two DTensors of one mesh: DTensor moves them to the
+    cheapest strategy of ``_matmul_strategies``, then each rank's kernel
+    runs on its local shards (one launch a rank, counted in
+    ``matmul.launches``)."""
+    refuse_grad("matmul", a, b)
+    return torch.ops.repro_torch.matmul(a, b, out_dtype)

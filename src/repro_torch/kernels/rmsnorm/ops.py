@@ -5,13 +5,18 @@ model-native (..., D) activations. A CUDA tensor launches the CUDA kernel
 (or raises) as ``rmsnorm.plan_for`` cuts the rows; a CPU tensor takes the
 plain version ``rmsnorm_ref``. ``rmsnorm.launches`` counts kernel launches.
 It raises when autograd would record the call (``refuse_grad``): the
-kernel has no backward, and training takes the plain route.
+kernel has no backward, and training takes the plain route. It raises on a
+DTensor (``refuse_dtensor``): ``rmsnorm_on_shards`` takes DTensors, through
+the op ``repro_torch::rmsnorm``, whose sharding strategies DTensor reads, so
+that each rank's kernel runs on its local rows.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor.experimental import register_sharding
 
-from repro_torch.kernels import refuse_grad
+from repro_torch.kernels import refuse_dtensor, refuse_grad
 from .ref import rmsnorm_ref
 from .rmsnorm import DTYPE_CODES, plan_for, rmsnorm_rows
 
@@ -22,6 +27,7 @@ _MAX_ROWS = 2**31 - 1  # CUDA's limit on grid x (the shared route's one block a 
 def _check(x, scale) -> None:
     if not (isinstance(x, torch.Tensor) and isinstance(scale, torch.Tensor)):
         raise TypeError("rmsnorm takes two tensors")
+    refuse_dtensor("rmsnorm", x, scale)
     if x.dim() < 1 or scale.dim() != 1 or scale.shape[0] != x.shape[-1]:
         raise ValueError(f"rmsnorm takes x (..., D) and scale (D,); "
                          f"got shapes {tuple(x.shape)} and {tuple(scale.shape)}")
@@ -52,3 +58,28 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torch
 
 
 rmsnorm.launches = 0
+
+
+@torch.library.custom_op("repro_torch::rmsnorm", mutates_args=())
+def _rmsnorm_op(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    return rmsnorm(x, scale, eps=eps)
+
+
+@_rmsnorm_op.register_fake
+def _(x, scale, eps):
+    return torch.empty_like(x)
+
+
+@register_sharding(torch.ops.repro_torch.rmsnorm.default)
+def _rmsnorm_strategies(x, scale, eps):
+    """Per mesh dim: rows split along any dim but the normalised one, the
+    scale replicated; or all replicated."""
+    return [([Shard(d)], [Shard(d), Replicate(), None]) for d in range(x.ndim - 1)] + \
+        [([Replicate()], [Replicate(), Replicate(), None])]
+
+
+def rmsnorm_on_shards(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
+    """``rmsnorm`` of DTensors of one mesh: each rank's kernel on its local
+    rows (one launch a rank, counted in ``rmsnorm.launches``)."""
+    refuse_grad("rmsnorm", x, scale)
+    return torch.ops.repro_torch.rmsnorm(x, scale, eps)

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import refuse_grad
+from repro_torch.kernels import refuse_dtensor, refuse_grad
 from .ref import ssd_ref
 from .ssd import DTYPE_CODES, ROUTES, plan_for, ssd_scan, state_scratch
 
@@ -32,6 +32,7 @@ _MAX_GRID_Y = 65535  # CUDA's limit on grid y (the batch)
 def _check(x, dt, a_log, b, c, chunk) -> int:
     if not all(isinstance(t, torch.Tensor) for t in (x, dt, a_log, b, c)):
         raise TypeError("ssd takes five tensors")
+    refuse_dtensor("ssd", x, dt, a_log, b, c)
     if x.dim() != 4 or dt.dim() != 3 or a_log.dim() != 1 or b.dim() != 3 or c.shape != b.shape:
         raise ValueError(f"ssd takes x (B, S, H, P), dt (B, S, H), a_log (H,) and b, c "
                          f"(B, S, N); got shapes {tuple(x.shape)}, {tuple(dt.shape)}, "

@@ -33,14 +33,18 @@ import torch.multiprocessing as mp
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from repro_torch.device import resolve
+from repro_torch.parallel.collectives import blocking_functional_collectives
 
 
 def make_mesh(shape: tuple[int, ...], axis_names: tuple[str, ...], *,
               device_type: str = "cuda") -> DeviceMesh:
     """A mesh of ``shape`` over the ranks of the default process group (the
     counterpart of ``jax.make_mesh``); the group must hold exactly that many
-    ranks."""
+    ranks. A CUDA mesh over gloo runs DTensor's collectives blocking
+    (``collectives.blocking_functional_collectives``)."""
     resolve(device_type)
+    if device_type == "cuda" and dist.get_backend() == "gloo":
+        blocking_functional_collectives("cuda")
     n = 1
     for s in shape:
         n *= s

@@ -28,7 +28,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention.ops import attn_fn as flash_attn_fn
-from .layers import (_randn, embed_init, gqa_attention, gqa_decode_attention, init_attention,
+from repro_torch.parallel.act import constrain
+from .layers import (_randn, embed, embed_init, gqa_attention, gqa_decode_attention, init_attention,
                      init_layernorm, init_mlp, layer_norm, linear, mlp)
 from .transformer import _device, _stack, layer, rematted, softmax_xent, unstack
 
@@ -86,7 +87,8 @@ def enc_block(x, bp, cfg: ArchConfig, *, use_kernel: bool = False):
     attn_fn = flash_attn_fn if use_kernel else None
     x = x + gqa_attention(layer_norm(x, bp["ln1"]), bp["attn"], cfg.n_heads, cfg.n_kv,
                           rope=False, causal=False, attn_fn=attn_fn, use_kernel=use_kernel)
-    return x + mlp(layer_norm(x, bp["ln2"]), bp["mlp"], "gelu", use_kernel=use_kernel)
+    x = x + mlp(layer_norm(x, bp["ln2"]), bp["mlp"], "gelu", use_kernel=use_kernel)
+    return constrain(x, "act")
 
 
 def encode(params, cfg: ArchConfig, frames: torch.Tensor, *, compute_dtype=torch.bfloat16,
@@ -118,7 +120,8 @@ def dec_block(x, bp, memory, cfg: ArchConfig, *, use_kernel: bool = False):
     kv = _cross_kv(memory, bp["cross_attn"], cfg, use_kernel)
     x = x + gqa_attention(h, bp["cross_attn"], cfg.n_heads, cfg.n_kv, rope=False, causal=False,
                           kv_override=kv, attn_fn=attn_fn, use_kernel=use_kernel)
-    return x + mlp(layer_norm(x, bp["ln2"]), bp["mlp"], "gelu", use_kernel=use_kernel)
+    x = x + mlp(layer_norm(x, bp["ln2"]), bp["mlp"], "gelu", use_kernel=use_kernel)
+    return constrain(x, "act")
 
 
 def decode_train(params, cfg: ArchConfig, tokens: torch.Tensor, memory: torch.Tensor, *,
@@ -128,13 +131,13 @@ def decode_train(params, cfg: ArchConfig, tokens: torch.Tensor, memory: torch.Te
     in fp32. ``remat="full"`` checkpoints each block while grad mode is on,
     as the reference does; any other value runs them plainly."""
     s = tokens.shape[1]
-    x = params["embed"][tokens].to(compute_dtype)
+    x = embed(params["embed"], tokens, compute_dtype)
     x = x + params["pos_dec"][:s].to(compute_dtype)[None]
     body = rematted(dec_block, "full") if remat == "full" else dec_block
     for bp in unstack(params["dec_blocks"], cfg.n_layers):
         x = body(x, bp, memory, cfg, use_kernel=use_kernel)
     x = layer_norm(x, params["ln_f"])
-    return linear(x, params["embed"].t(), use_kernel).float()
+    return constrain(linear(x, params["embed"].t(), use_kernel).float(), "logits")
 
 
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor, frames: torch.Tensor, *,
@@ -183,7 +186,7 @@ def decode_step(params, cfg: ArchConfig, cache, tokens: torch.Tensor, pos: torch
                 compute_dtype=torch.bfloat16, use_kernel: bool = True):
     """tokens (B, 1) integer; pos (B,) integer -> (logits (B, vocab), new
     cache). The cache passed in is not changed."""
-    x = params["embed"][tokens].to(compute_dtype)
+    x = embed(params["embed"], tokens, compute_dtype)
     x = x + params["pos_dec"][pos].to(compute_dtype)[:, None]
     k_new, v_new = [], []
     for i in range(cfg.n_layers):

@@ -10,8 +10,15 @@ dtype before the PV product. Params are nested dicts of tensors.
 matmul kernel (``repro_torch.kernels.matmul``) and each RMSNorm through the
 RMSNorm kernel; ``use_kernel=False`` takes their plain versions, the oracle
 of tests and the smoke run. Attention takes the kernel through the
-``attn_fn`` hook, as in the JAX package. ``constrain`` (activation sharding
-in the JAX package) is the identity on one card and has no counterpart.
+``attn_fn`` hook, as in the JAX package.
+
+On a mesh (``train.steps.build_step(mesh=)``) the params and activations
+are DTensors: ``constrain`` pins the activations at the reference's points,
+each product reads its weight ``gathered`` over the FSDP axes and has its
+partial sums ``summed``, and the kernels run on each rank's local shards
+(``*_on_shards``). With no
+activation table installed, ``constrain`` returns its input and nothing
+here changes.
 """
 from __future__ import annotations
 
@@ -19,11 +26,13 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from repro_torch.kernels.matmul.ops import matmul
+from repro_torch.kernels.matmul.ops import matmul, matmul_on_shards
 from repro_torch.kernels.matmul.ref import matmul_ref
-from repro_torch.kernels.rmsnorm.ops import rmsnorm
+from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_on_shards
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.parallel.act import constrain, gathered, summed
 
 # ---------------------------------------------------------------------------
 # Initializers
@@ -51,11 +60,31 @@ def embed_init(generator: torch.Generator, vocab: int, d: int, dtype=torch.float
 
 
 def linear(x: torch.Tensor, w: torch.Tensor, use_kernel: bool = False) -> torch.Tensor:
-    """``x @ w`` for x (..., K) and w (K, N), w cast to x's dtype, fp32 sums."""
-    w = w.to(x.dtype).contiguous()
+    """``x @ w`` for x (..., K) and w (K, N), w cast to x's dtype, fp32 sums.
+
+    On a mesh, w is gathered over the FSDP axes before the cast, as XLA
+    gathers the reference's fp32 weights; where K is split over a mesh
+    axis (a row-parallel product) each rank's partial product stays fp32
+    until the parts are summed, so the result is rounded once, as on one
+    card."""
+    w = gathered(w).to(x.dtype).contiguous()
     x2 = x.reshape(-1, x.shape[-1])
-    y = matmul(x2, w) if use_kernel else matmul_ref(x2, w)
-    return y.reshape(*x.shape[:-1], w.shape[1])
+    if not isinstance(x2, DTensor):
+        y = matmul(x2, w) if use_kernel else matmul_ref(x2, w)
+        return y.reshape(*x.shape[:-1], w.shape[1])
+    split_k = any(px == Shard(1) and pw == Shard(0) for px, pw in zip(x2.placements, w.placements))
+    out_dtype = torch.float32 if split_k else None
+    y = (matmul_on_shards(x2, w, out_dtype=out_dtype) if use_kernel
+         else matmul_ref(x2, w, out_dtype=out_dtype))
+    return summed(y).to(x.dtype).reshape(*x.shape[:-1], w.shape[1])
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    """``table[tokens]`` in ``dtype``; on a mesh, the gather of the table
+    ``gathered`` over the FSDP axes (DTensor's embedding op)."""
+    if isinstance(table, DTensor):
+        return F.embedding(tokens, gathered(table)).to(dtype)
+    return table[tokens].to(dtype)
 
 
 def init_rmsnorm(d: int, dtype=torch.float32, *, device="cpu"):
@@ -64,7 +93,8 @@ def init_rmsnorm(d: int, dtype=torch.float32, *, device="cpu"):
 
 def rms_norm(x: torch.Tensor, params, eps: float = 1e-6, *, use_kernel: bool = False):
     if use_kernel:
-        return rmsnorm(x, params["scale"], eps=eps)
+        fn = rmsnorm_on_shards if isinstance(x, DTensor) else rmsnorm
+        return fn(x, params["scale"], eps=eps)
     return rmsnorm_ref(x, params["scale"], eps)
 
 
@@ -148,15 +178,13 @@ def gqa_attention(x, params, n_heads: int, n_kv: int, *, rope: bool = True,
     """
     b, s, d = x.shape
     hd = params["wq"].shape[1] // n_heads
-    cd = x.dtype
 
-    q = linear(x, params["wq"], use_kernel).reshape(b, s, n_heads, hd)
+    q = constrain(linear(x, params["wq"], use_kernel).reshape(b, s, n_heads, hd), "heads")
     if kv_override is None:
         k = linear(x, params["wk"], use_kernel).reshape(b, s, n_kv, hd)
         v = linear(x, params["wv"], use_kernel).reshape(b, s, n_kv, hd)
     else:
         k, v = kv_override
-    s_k = k.shape[1]
 
     if rope:
         pos = positions if positions is not None else torch.arange(s, device=x.device)
@@ -167,16 +195,35 @@ def gqa_attention(x, params, n_heads: int, n_kv: int, *, rope: bool = True,
     if attn_fn is not None:
         out = attn_fn(q, k, v, causal=causal, window=window)
     else:
-        g = n_heads // n_kv
-        qg = q.reshape(b, s, n_kv, g, hd)
-        scores = torch.einsum("bsngh,btnh->bngst", qg, k).float()
-        scores = scores * (1.0 / math.sqrt(hd))
-        if causal:
-            scores = scores + _causal_mask(s, s_k, window, offset=s_k - s,
-                                           device=x.device)[None, None, None]
-        probs = torch.softmax(scores, dim=-1).to(cd)
-        out = torch.einsum("bngst,btnh->bsngh", probs, v).reshape(b, s, n_heads * hd)
-    return linear(out.reshape(b, s, -1), params["wo"], use_kernel)
+        out = _attend(_whole_heads(q), _whole_heads(k), _whole_heads(v), causal, window)
+    return linear(constrain(out.reshape(b, s, -1), "attn_out"), params["wo"], use_kernel)
+
+
+def _attend(q, k, v, causal: bool, window):
+    """The plain attention: q (B, S, H, hd), k, v (B, Sk, KV, hd) -> (B, S,
+    H*hd); fp32 scores, the probabilities cast to q's dtype before PV."""
+    b, s, n_heads, hd = q.shape
+    s_k, n_kv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, s, n_kv, n_heads // n_kv, hd)
+    scores = torch.einsum("bsngh,btnh->bngst", qg, k).float()
+    scores = scores * (1.0 / math.sqrt(hd))
+    if causal:
+        scores = scores + _causal_mask(s, s_k, window, offset=s_k - s,
+                                       device=q.device)[None, None, None]
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bngst,btnh->bsngh", probs, v).reshape(b, s, n_heads * hd)
+
+
+def _whole_heads(t):
+    """A DTensor with every placement but its batch split made ``Replicate``.
+    The plain attention's einsums flatten (B, KV) into one batch dim, which
+    DTensor refuses (torch 2.11) while both are split; the flash kernel
+    takes split heads instead (``attn_fn``). At decode, one token's q, k
+    and v are small beside the sequence-sharded cache they meet."""
+    if not isinstance(t, DTensor):
+        return t
+    return t.redistribute(t.device_mesh,
+                          tuple(p if p == Shard(0) else Replicate() for p in t.placements))
 
 
 def gqa_decode_attention(x, params, n_heads: int, n_kv: int, k_cache, v_cache, write_pos, *,
@@ -206,6 +253,7 @@ def gqa_decode_attention(x, params, n_heads: int, n_kv: int, k_cache, v_cache, w
     if rope:
         q = apply_rope(q, rope_pos[:, None], rope_theta)
         k = apply_rope(k, rope_pos[:, None], rope_theta)
+    q, k, v = _whole_heads(q), _whole_heads(k), _whole_heads(v)
 
     # Write new kv at write_pos (one-hot blend, as the reference keeps shapes
     # static). Built by comparison, as jax.nn.one_hot is: a position outside
@@ -226,7 +274,11 @@ def gqa_decode_attention(x, params, n_heads: int, n_kv: int, k_cache, v_cache, w
     ok = t <= valid_upto[:, None, None, None]
     scores = scores.masked_fill(~ok, float("-inf"))
     probs = torch.softmax(scores, dim=-1).to(cd)
-    out = torch.einsum("bngt,btnh->bngh", probs.to(dv), v_cache.to(dv))
+    if isinstance(probs, DTensor):  # a sequence-sharded cache: its parts summed in fp32
+        out = summed(torch.einsum("bngt,btnh->bngh", probs.to(dv).float(),
+                                  v_cache.to(dv).float())).to(dv)
+    else:
+        out = torch.einsum("bngt,btnh->bngh", probs.to(dv), v_cache.to(dv))
     out = out.reshape(b, 1, n_heads * hd)
     return linear(out, params["wo"], use_kernel), k_cache, v_cache
 
@@ -253,7 +305,7 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp(x, params, activation: str = "silu", *, use_kernel: bool = False):
-    h = linear(x, params["w_up"], use_kernel)
+    h = constrain(linear(x, params["w_up"], use_kernel), "ffn")
     if activation == "relu2":        # Nemotron squared ReLU
         h = torch.square(torch.relu(h))
     elif activation == "gelu":       # jax.nn.gelu's default is the tanh form

@@ -26,7 +26,13 @@ top-k replicated on every rank of the mesh axis, each rank dispatches the
 tokens to its own ``n_experts / ep`` experts only (its expert leaves hold
 just those; ``init_moe_mlp(experts=...)`` draws them) with the capacity of
 the global token count, and the partial outputs are all-reduced in fp32;
-the shared expert is added after the reduction. It runs forward only.
+the shared expert is added after the reduction. It differentiates: the
+all-reduces of y and of the aux terms pass the cotangent through unchanged
+(every rank holds the replicated loss), and the replicated input and
+router enter the expert region through an identity whose backward sums
+their cotangents over the expert axis (the transpose of a replicated input
+to the reference's ``shard_map``), so each rank's expert leaves take their
+own gradients and the router and input take the whole layer's.
 """
 from __future__ import annotations
 
@@ -34,12 +40,11 @@ import math
 
 import torch
 
-from repro_torch import tree
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention.ops import attn_fn as flash_attn_fn
-from repro_torch.parallel.act import ep_mesh
+from repro_torch.parallel.act import constrain, ep_mesh
 from repro_torch.parallel.collectives import all_reduce, axis_group
-from .layers import (_randn, dense_init, embed_init, gqa_attention, gqa_decode_attention,
+from .layers import (_randn, dense_init, embed, embed_init, gqa_attention, gqa_decode_attention,
                      init_attention, init_mlp, init_rmsnorm, linear, mlp, rms_norm, silu)
 from .transformer import _device, _stack, layer, rematted, softmax_xent, unstack
 
@@ -170,12 +175,43 @@ def _expert_compute(xf: torch.Tensor, p, cfg: ArchConfig, n_local: int, e_offset
     flat_e, slot, keep, counts = _slots(expert_idx, n_local, e_offset, capacity)
     buf_idx = flat_e * capacity + slot                                # (k*T,)
 
-    xk = xf.repeat(k, 1) * keep[:, None].to(cd)
+    xk = constrain(xf.repeat(k, 1) * keep[:, None].to(cd), "tokens_flat")
     buffers = torch.zeros((n_local * capacity, d), dtype=cd, device=xf.device)
-    buffers.index_add_(0, buf_idx, xk)
-    out = _experts(buffers.reshape(n_local, capacity, d), p, use_kernel).reshape(-1, d)
+    buffers = constrain(buffers.index_add_(0, buf_idx, xk), "experts_flat")
+    buffers = constrain(buffers.reshape(n_local, capacity, d), "experts")
+    out = constrain(_experts(buffers, p, use_kernel), "experts").reshape(-1, d)
+    out = constrain(out, "experts_flat")
     gates = keep.to(cd) * gate_vals.t().reshape(-1).to(cd)
-    return (out[buf_idx] * gates[:, None]).reshape(k, t, d).sum(0), counts, keep
+    y = constrain(out[buf_idx] * gates[:, None], "tokens_flat")
+    return y.reshape(k, t, d).sum(0), counts, keep
+
+
+class _Replicated(torch.autograd.Function):
+    """Identity forward; the backward sums the cotangent over ``group``: a
+    replicated tensor entering per-rank work whose results are summed."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class _Summed(torch.autograd.Function):
+    """All-reduce (sum) forward; the backward passes the cotangent through:
+    the sum is replicated, and so is the loss computed from it on every
+    rank."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 def _moe_mlp_ep(x: torch.Tensor, p, cfg: ArchConfig, mesh, axis: str, *,
@@ -185,10 +221,8 @@ def _moe_mlp_ep(x: torch.Tensor, p, cfg: ArchConfig, mesh, axis: str, *,
     its index r; the router, top-k and shared expert are replicated. The
     partial y is all-reduced in fp32; the aux loss from the local slice of
     the importance times the local counts, all-reduced with the dropped
-    assignments in one fp32 sum."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in [x, *tree.leaves(p)]):
-        raise NotImplementedError("expert parallelism runs forward only: its all-reduces "
-                                  "have no backward; call it under torch.no_grad()")
+    assignments in one fp32 sum. Differentiable (``_Replicated`` on the way
+    in, ``_Summed`` on the way out)."""
     e = cfg.moe
     group, ep, rank = axis_group(mesh, axis)
     if e.n_experts % ep:
@@ -200,13 +234,14 @@ def _moe_mlp_ep(x: torch.Tensor, p, cfg: ArchConfig, mesh, axis: str, *,
     b, s, d = x.shape
     t = b * s
     xf = x.reshape(t, d)
-    _, probs, gate_vals, expert_idx = route(xf, p["router"], cfg, use_kernel=use_kernel)
-    y, counts, keep = _expert_compute(xf, p, cfg, n_local, rank * n_local, gate_vals,
+    xr, router = _Replicated.apply(xf, group), _Replicated.apply(p["router"], group)
+    _, probs, gate_vals, expert_idx = route(xr, router, cfg, use_kernel=use_kernel)
+    y, counts, keep = _expert_compute(xr, p, cfg, n_local, rank * n_local, gate_vals,
                                       expert_idx, capacity(t, cfg), use_kernel=use_kernel)
-    y = all_reduce(y.float(), group).to(x.dtype)
+    y = _Summed.apply(y.float(), group).to(x.dtype)
     me_local = probs.mean(0)[rank * n_local:(rank + 1) * n_local]
-    sums = all_reduce(torch.stack([torch.sum(me_local * counts.float()),
-                                   (counts.sum() - keep.sum()).float()]), group)
+    sums = _Summed.apply(torch.stack([torch.sum(me_local * counts.float()),
+                                      (counts.sum() - keep.sum()).float()]), group)
     aux = e.n_experts * sums[0] / (t * e.top_k)
     if "shared" in p:
         y = y + mlp(xf, p["shared"], "silu", use_kernel=use_kernel)
@@ -250,15 +285,17 @@ def block_apply(x, bp, cfg: ArchConfig, attn_fn=None, *, use_kernel: bool = Fals
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor, *, compute_dtype=torch.bfloat16,
             remat: str = "full", use_kernel: bool = True):
     """tokens (B, S) integer -> (logits (B, S, vocab) fp32, mean aux loss)."""
-    x = params["embed"][tokens].to(compute_dtype)
+    x = constrain(embed(params["embed"], tokens, compute_dtype), "act")
     attn_fn = flash_attn_fn if use_kernel else None
     body = rematted(block_apply, remat)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for bp in unstack(params["blocks"], cfg.n_layers):
         x, a = body(x, bp, cfg, attn_fn, use_kernel=use_kernel)
+        x = constrain(x, "act")
         aux = aux + a
     x = rms_norm(x, params["ln_f"], use_kernel=use_kernel)
-    return linear(x, params["lm_head"], use_kernel).float(), aux / cfg.n_layers
+    logits = constrain(linear(x, params["lm_head"], use_kernel).float(), "logits")
+    return logits, aux / cfg.n_layers
 
 
 def loss_fn(params, cfg: ArchConfig, tokens, labels, aux_weight: float = 0.01,
@@ -280,7 +317,7 @@ def decode_step(params, cfg: ArchConfig, cache, tokens: torch.Tensor, pos: torch
     """tokens (B, 1) integer; pos (B,) integer -> (logits (B, vocab), new cache).
     The B tokens of a tick are routed together (capacity from T = B). The
     cache passed in is not changed."""
-    x = params["embed"][tokens].to(compute_dtype)
+    x = constrain(embed(params["embed"], tokens, compute_dtype), "dec")
     k_new, v_new = [], []
     for i in range(cfg.n_layers):
         bp = layer(params["blocks"], i)
@@ -291,7 +328,7 @@ def decode_step(params, cfg: ArchConfig, cache, tokens: torch.Tensor, pos: torch
         x = x + out
         y, _, _ = moe_mlp(rms_norm(x, bp["ln2"], use_kernel=use_kernel), bp["moe"], cfg,
                           use_kernel=use_kernel)
-        x = x + y
+        x = constrain(x + y, "dec")
         k_new.append(k_c)
         v_new.append(v_c)
     x = rms_norm(x, params["ln_f"], use_kernel=use_kernel)

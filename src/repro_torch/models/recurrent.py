@@ -29,7 +29,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention.ops import attn_fn as flash_attn_fn
-from .layers import (dense_init, embed_init, gqa_attention, gqa_decode_attention,
+from repro_torch.parallel.act import constrain
+from .layers import (dense_init, embed, embed_init, gqa_attention, gqa_decode_attention,
                      init_attention, init_mlp, init_rmsnorm, linear, mlp, rms_norm)
 from .ssm import (init_mamba2, init_mlstm, init_slstm, mamba2_apply, mamba2_decode,
                   mlstm_apply, mlstm_decode, slstm_apply)
@@ -82,12 +83,12 @@ def xlstm_forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
     """tokens (B, S) integer -> logits (B, S, vocab) in fp32. ``remat="full"``
     checkpoints each block while grad mode is on, as the reference's
     ``jax.checkpoint(body)`` does; any other value runs them plainly."""
-    x = params["embed"][tokens].to(compute_dtype)
+    x = constrain(embed(params["embed"], tokens, compute_dtype), "act")
     body = rematted(xlstm_block, "full") if remat == "full" else xlstm_block
     for bp in params["blocks"]:
-        x = body(x, bp, cfg, use_kernel=use_kernel)
+        x = constrain(body(x, bp, cfg, use_kernel=use_kernel), "act")
     x = rms_norm(x, params["ln_f"], use_kernel=use_kernel)
-    return linear(x, params["lm_head"], use_kernel).float()
+    return constrain(linear(x, params["lm_head"], use_kernel).float(), "logits")
 
 
 def xlstm_init_cache(cfg: ArchConfig, batch: int, s_max: int, dtype=torch.bfloat16, *,
@@ -114,7 +115,7 @@ def xlstm_decode_step(params, cfg: ArchConfig, cache, tokens: torch.Tensor, pos:
                       *, compute_dtype=torch.bfloat16, use_kernel: bool = True):
     """tokens (B, 1) integer -> (logits (B, vocab), new cache). ``pos`` is
     unused: the state is not positional. The cache passed in is not changed."""
-    x = params["embed"][tokens].to(compute_dtype)
+    x = embed(params["embed"], tokens, compute_dtype)
     new_cache = []
     for bp, cc in zip(params["blocks"], cache):
         h = rms_norm(x, bp["ln"], use_kernel=use_kernel)
@@ -170,7 +171,7 @@ def zamba_forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
                   compute_dtype=torch.bfloat16, remat: str = "full",
                   use_kernel: bool = True) -> torch.Tensor:
     """tokens (B, S) integer -> logits (B, S, vocab) in fp32."""
-    x = params["embed"][tokens].to(compute_dtype)
+    x = constrain(embed(params["embed"], tokens, compute_dtype), "act")
     shared = params["shared"]
     attn_fn = flash_attn_fn if use_kernel else None
     n_groups, per = _groups(cfg)
@@ -183,14 +184,15 @@ def zamba_forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
         x = x + gqa_attention(rms_norm(x, shared["ln1"], use_kernel=use_kernel),
                               shared["attn"], cfg.n_heads, cfg.n_kv, rope=cfg.rope,
                               rope_theta=cfg.rope_theta, attn_fn=attn_fn, use_kernel=use_kernel)
-        return x + mlp(rms_norm(x, shared["ln2"], use_kernel=use_kernel), shared["mlp"],
-                       cfg.activation, use_kernel=use_kernel)
+        x = x + mlp(rms_norm(x, shared["ln2"], use_kernel=use_kernel), shared["mlp"],
+                    cfg.activation, use_kernel=use_kernel)
+        return constrain(x, "act")
 
     body = rematted(group, "full") if remat == "full" else group
     for gp in unstack(params["mamba"], n_groups):
         x = body(x, gp)
     x = rms_norm(x, params["ln_f"], use_kernel=use_kernel)
-    return linear(x, params["lm_head"], use_kernel).float()
+    return constrain(linear(x, params["lm_head"], use_kernel).float(), "logits")
 
 
 def zamba_init_cache(cfg: ArchConfig, batch: int, s_max: int, dtype=torch.bfloat16, *,
@@ -219,7 +221,7 @@ def zamba_decode_step(params, cfg: ArchConfig, cache, tokens: torch.Tensor, pos:
 
     The cache passed in is not changed.
     """
-    x = params["embed"][tokens].to(compute_dtype)
+    x = embed(params["embed"], tokens, compute_dtype)
     shared = params["shared"]
     n_groups, per = _groups(cfg)
     conv_n, ssm_n, k_n, v_n = [], [], [], []

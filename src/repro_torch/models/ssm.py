@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import SSMCfg
 from repro_torch.kernels.ssd.ops import ssd
 from repro_torch.kernels.ssd.ref import ssd_chunked
+from repro_torch.parallel.act import constrain
 from .layers import _randn, dense_init, init_rmsnorm, linear, rms_norm, silu
 
 
@@ -85,7 +86,7 @@ def mamba2_apply(x, p, s: SSMCfg, *, use_kernel: bool = False):
     d_in = p["conv_w"].shape[1]
     n_h = p["a_log"].shape[0]
 
-    zx = linear(x, p["in_proj"], use_kernel)
+    zx = constrain(linear(x, p["in_proj"], use_kernel), "ffn2")
     z, xin = torch.split(zx, d_in, dim=-1)
     xin = silu(_causal_conv(xin, p["conv_w"].to(cd)))
     bc = linear(x, p["bc_proj"], use_kernel)

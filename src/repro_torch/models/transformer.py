@@ -34,7 +34,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve as _device
 from repro_torch.kernels.flash_attention.ops import attn_fn as flash_attn_fn
 from repro_torch.tree import map_tree
-from .layers import (dense_init, embed_init, gqa_attention, gqa_decode_attention,
+from repro_torch.parallel.act import constrain
+from .layers import (dense_init, embed, embed_init, gqa_attention, gqa_decode_attention,
                      init_attention, init_mlp, init_rmsnorm, linear, mlp, rms_norm)
 
 
@@ -170,16 +171,16 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor, patch_embeds=None, *,
     prepended to the token embeddings (the anyres frontend is a stub, as in
     the reference).
     """
-    x = params["embed"][tokens].to(compute_dtype)
+    x = constrain(embed(params["embed"], tokens, compute_dtype), "act")
     if patch_embeds is not None:
         proj = linear(patch_embeds.to(compute_dtype), params["projector"], use_kernel)
         x = torch.cat([proj, x], dim=1)
     attn_fn = flash_attn_fn if use_kernel else None
     body = rematted(block_apply, remat)
     for bp in unstack(params["blocks"], cfg.n_layers):
-        x = body(x, bp, cfg, attn_fn, use_kernel=use_kernel)
+        x = constrain(body(x, bp, cfg, attn_fn, use_kernel=use_kernel), "act")
     x = rms_norm(x, params["ln_f"], use_kernel=use_kernel)
-    return linear(x, _head(params), use_kernel).float()
+    return constrain(linear(x, _head(params), use_kernel).float(), "logits")
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -226,7 +227,7 @@ def decode_step(params, cfg: ArchConfig, cache, tokens: torch.Tensor, pos: torch
     RoPE still uses the absolute position. The cache passed in is not
     changed.
     """
-    x = params["embed"][tokens].to(compute_dtype)
+    x = constrain(embed(params["embed"], tokens, compute_dtype), "dec")
     slots = cache["k"].shape[2]
     if cfg.window:
         write_pos = pos % slots                # ring buffer
@@ -245,6 +246,7 @@ def decode_step(params, cfg: ArchConfig, cache, tokens: torch.Tensor, pos: torch
         x = x + out
         x = x + mlp(rms_norm(x, bp["ln2"], use_kernel=use_kernel), bp["mlp"], cfg.activation,
                     use_kernel=use_kernel)
+        x = constrain(x, "dec")
         k_new.append(k_c)
         v_new.append(v_c)
     x = rms_norm(x, params["ln_f"], use_kernel=use_kernel)

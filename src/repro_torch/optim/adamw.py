@@ -15,6 +15,12 @@ returns the same objects. XLA donates the reference's buffers; eager
 PyTorch cannot, and an out-of-place update of StarCoder2-3B (fp32 params,
 grads, mu and nu: 4 x 12.7 GB) would add about 38 GB of new tensors. The
 grads are scaled in place too: ``apply`` consumes them.
+
+DTensor params (a sharded train step) are updated shard by shard: each
+gradient is first moved to its param's placements (where the reduction
+over the data axes happens, unless ``StepOptions.constrain_grads`` did it
+already), the global norm sums each leaf's squares over the mesh, and the
+update runs on each rank's local shards.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.tree import leaves, map_tree
 
@@ -71,15 +78,33 @@ def _slices(t: torch.Tensor):
     return t.view(-1).split(_SLICE)
 
 
+def _sum_sq(x: torch.Tensor) -> torch.Tensor:
+    if isinstance(x, DTensor):  # the whole leaf's, each element counted once
+        return torch.sum(torch.square(x.float())).full_tensor()
+    return sum(torch.sum(torch.square(s.float())) for s in _slices(x))
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in fp32."""
-    return torch.sqrt(sum(torch.sum(torch.square(s.float()))
-                          for x in leaves(tree) for s in _slices(x)))
+    return torch.sqrt(sum(_sum_sq(x) for x in leaves(tree)))
+
+
+def placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient moved to its param's placements (a partial sum
+    over the data axes reduced, scattered where the param is sharded)."""
+    if isinstance(p, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _shard(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 @torch.no_grad()
 def apply(grads, state: OptState, params, cfg: AdamWConfig):
     """Returns (params, state, stats), the first two updated in place."""
+    grads = map_tree(placed_like, grads, params)
     state.count.add_(1)
     count = state.count.float()
     gnorm = global_norm(grads)
@@ -88,7 +113,8 @@ def apply(grads, state: OptState, params, cfg: AdamWConfig):
     c2 = 1 - torch.pow(cfg.b2, count)
     lr = schedule(cfg, count)
 
-    for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state.mu), leaves(state.nu)):
+    for leaf in zip(leaves(params), leaves(grads), leaves(state.mu), leaves(state.nu)):
+        p, g, m, v = (_shard(t) for t in leaf)
         if not (p.is_contiguous() and g.is_contiguous()):
             raise ValueError("adamw.apply updates contiguous params and grads in place")
         for ps, gs, ms, vs in zip(_slices(p), _slices(g), _slices(m), _slices(v)):

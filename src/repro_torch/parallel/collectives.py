@@ -8,6 +8,13 @@ where the int8 payload is what the all-reduce moves: each rank quantizes
 ``g + err`` with its own scale, the int8 values are summed as int32 and the
 scales reduced by max, and the sum is dequantized with the max scale.
 
+``blocking_functional_collectives`` runs DTensor's collectives (the
+functional ops of ``torch.ops._c10d_functional``) as blocking
+``torch.distributed`` calls, for gloo groups holding CUDA tensors: gloo
+runs every blocking collective on them, but the functional ops'
+``wait_tensor`` ends the process with a segmentation fault (torch 2.11 on
+the H100 machine, four gloo ranks sharing the card).
+
 ``on_host`` picks the transport of a process group from its backend, before
 anything is sent: gloo moves host copies of device tensors, NCCL moves the
 device tensors themselves. ``axis_group`` and ``axis_sizes`` read a mesh
@@ -115,3 +122,72 @@ def compressed_psum(grads, group, err):
         return deq.to(g.dtype), acc - dequantize_int8(q, scale)
 
     return _unzip(map_tree(one, grads, err))
+
+
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN,
+               "product": dist.ReduceOp.PRODUCT, "avg": dist.ReduceOp.SUM}
+_BLOCKING: dict = {}  # device type -> the torch.library registration that holds the kernels
+
+
+def _group(name):
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    return _resolve_process_group(name) if isinstance(name, str) else name
+
+
+def _reduced(t: torch.Tensor, reduce_op: str, group) -> torch.Tensor:
+    if reduce_op == "avg":
+        t.div_(dist.get_world_size(group))
+    return t
+
+
+def _all_gather(x, group_size, group_name):
+    out = x.new_empty((x.shape[0] * group_size, *x.shape[1:]))
+    dist.all_gather_into_tensor(out, x.contiguous(), group=_group(group_name))
+    return out
+
+
+def _reduce_scatter(x, reduce_op, group_size, group_name):
+    out = x.new_empty((x.shape[0] // group_size, *x.shape[1:]))
+    group = _group(group_name)
+    dist.reduce_scatter_tensor(out, x.contiguous(), op=_REDUCE_OPS[reduce_op], group=group)
+    return _reduced(out, reduce_op, group)
+
+
+def _all_reduce(x, reduce_op, group_name):
+    out, group = x.clone(memory_format=torch.contiguous_format), _group(group_name)
+    dist.all_reduce(out, op=_REDUCE_OPS[reduce_op], group=group)
+    return _reduced(out, reduce_op, group)
+
+
+def _all_to_all(x, output_split_sizes, input_split_sizes, group_name):
+    rows = sum(output_split_sizes) if output_split_sizes else x.shape[0]
+    out = x.new_empty((rows, *x.shape[1:]))
+    dist.all_to_all_single(out, x.contiguous(), output_split_sizes or None,
+                           input_split_sizes or None, group=_group(group_name))
+    return out
+
+
+def blocking_functional_collectives(device_type: str = "cuda") -> None:
+    """Register blocking kernels for ``device_type`` under the functional
+    collectives DTensor calls (all-gather, reduce-scatter, all-reduce, their
+    coalesced forms, all-to-all): each is the ``torch.distributed`` call of
+    the same name on the op's group, complete when it returns, and
+    ``wait_tensor`` returns its input. The values are the collectives'
+    own. Every group of the process takes these kernels, so call it where
+    all of them are gloo groups (``launch.mesh.make_mesh`` does, for CUDA
+    meshes over gloo). Idempotent."""
+    if device_type in _BLOCKING:
+        return
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    key = {"cuda": "CUDA", "cpu": "CPU"}[device_type]
+    lib.impl("all_gather_into_tensor", _all_gather, key)
+    lib.impl("all_gather_into_tensor_coalesced",
+             lambda xs, n, g: [_all_gather(x, n, g) for x in xs], key)
+    lib.impl("reduce_scatter_tensor", _reduce_scatter, key)
+    lib.impl("reduce_scatter_tensor_coalesced",
+             lambda xs, op, n, g: [_reduce_scatter(x, op, n, g) for x in xs], key)
+    lib.impl("all_reduce", _all_reduce, key)
+    lib.impl("all_reduce_coalesced", lambda xs, op, g: [_all_reduce(x, op, g) for x in xs], key)
+    lib.impl("all_to_all_single", _all_to_all, key)
+    lib.impl("wait_tensor", lambda t: t, key)
+    _BLOCKING[device_type] = lib

@@ -13,20 +13,23 @@ with a context check for MoE expert tensors; leading stack dims (scanned
 layers, zamba groups) are padded with None. A spec is a tuple with one
 entry per tensor dim (an axis name, a tuple of names, or None), as in
 ``parallel.act``; ``placements`` turns one into DTensor placements for a
-``DeviceMesh``. Axis sizes come from a ``DeviceMesh`` or from a plain
-``{axis: size}`` mapping (``collectives.axis_sizes``), so the rules can be
-evaluated for a mesh wider than the ranks at hand. Leaves only need a
+``DeviceMesh``, and ``distribute`` places a tree by its specs. Axis sizes
+come from a ``DeviceMesh`` or from a plain ``{axis: size}`` mapping
+(``collectives.axis_sizes``), so the rules can be evaluated for a mesh
+wider than the ranks at hand. Leaves only need a
 ``.shape`` (meta tensors do).
 """
 from __future__ import annotations
 
 from typing import Any
 
-from torch.distributed.tensor import Replicate, Shard
+import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
+from repro_torch.optim.adamw import OptState
 from repro_torch.parallel.collectives import axis_sizes
-from repro_torch.tree import map_with_path
+from repro_torch.tree import map_tree, map_with_path
 
 FSDP = "__fsdp__"  # placeholder resolved to ("pod", "data") or ("data",)
 
@@ -37,6 +40,12 @@ def fsdp_axes(mesh) -> tuple[str, ...]:
 
 def dp_axes(mesh) -> tuple[str, ...]:
     return fsdp_axes(mesh)
+
+
+def dp_spec(mesh):
+    """The data axes as one spec entry: ``"data"``, or ``("pod", "data")``."""
+    dp = dp_axes(mesh)
+    return dp if len(dp) > 1 else dp[0]
 
 
 # name -> spec template (trailing dims; leading stack dims padded with None)
@@ -174,3 +183,53 @@ def placements(spec: tuple, mesh) -> tuple:
                 if axis == entry or (isinstance(entry, tuple) and axis in entry)]
         out.append(Shard(dims[0]) if dims else Replicate())
     return tuple(out)
+
+
+def opt_pspecs(p_specs) -> OptState:
+    """Specs of ``adamw.OptState`` for params of ``p_specs``: both moments as
+    their params (the reference's ``OptState(mu=p_specs, nu=p_specs,
+    count=P())``); the step count None, which ``distribute`` leaves a plain
+    tensor, the same on every rank."""
+    return OptState(mu=p_specs, nu=p_specs, count=None)
+
+
+def distribute(tree, specs, mesh):
+    """``tree`` on ``mesh``, leaf by leaf by the spec at the same place of
+    ``specs``. A plain leaf, the same global tensor on every rank, becomes
+    the DTensor of this rank's shard, sliced with no communication
+    (``src_data_rank=None``) and copied, so the global leaf can be freed; a
+    DTensor leaf is redistributed to the spec's placements (a no-op where
+    they already agree). A leaf whose spec is None stays as it is."""
+    return map_tree(lambda leaf, spec: leaf if spec is None else
+                    place(leaf, mesh, placements(spec, mesh)),
+                    tree, specs, is_leaf=lambda x: isinstance(x, torch.Tensor))
+
+
+def place(leaf: torch.Tensor, mesh, want: tuple) -> DTensor:
+    """``leaf`` as a DTensor of ``want`` placements on ``mesh``: a plain
+    tensor, the same global tensor on every rank, sliced to this rank's
+    shard with no communication and copied (so the global tensor can be
+    freed); a DTensor redistributed, where its placements differ."""
+    if isinstance(leaf, DTensor):
+        return leaf if tuple(leaf.placements) == tuple(want) else leaf.redistribute(mesh, want)
+    out = distribute_tensor(leaf, mesh, want, src_data_rank=None)
+    local = out.to_local()
+    if local.untyped_storage().data_ptr() == leaf.untyped_storage().data_ptr():
+        out = DTensor.from_local(local.clone(), mesh, want, run_check=False,
+                                 shape=out.shape, stride=out.stride())
+    return out
+
+
+
+def is_spec(x) -> bool:
+    """Whether ``x`` is a leaf of a spec tree: a spec (a plain tuple; the
+    trees' nodes are dicts, lists and NamedTuples) or None."""
+    return x is None or (isinstance(x, tuple) and not hasattr(x, "_fields"))
+
+
+def shardings(specs, mesh):
+    """The (mesh, placements) pair of each spec of a tree (None stays None):
+    the counterpart of the reference's tree of ``NamedSharding``, what
+    ``checkpoint.store.restore(placements=)`` takes."""
+    return map_tree(lambda spec: None if spec is None else (mesh, placements(spec, mesh)),
+                    specs, is_leaf=is_spec)

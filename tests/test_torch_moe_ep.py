@@ -156,11 +156,3 @@ def test_init_draws_a_ranks_slice_of_the_whole_layer():
     torch.testing.assert_close(part["shared"]["w_down"], whole["shared"]["w_down"], rtol=0,
                                atol=0)
     assert torch.equal(part_gen.get_state(), whole_gen.get_state())
-
-
-def test_ep_refuses_autograd():
-    cfg = get_config(ARCH).reduced()
-    p = moe.init_moe_mlp(torch.Generator().manual_seed(0), cfg)
-    x = torch.zeros((1, 4, cfg.d_model), requires_grad=True)
-    with pytest.raises(NotImplementedError, match="forward only"):
-        moe._moe_mlp_ep(x, p, cfg, None, "model")
