@@ -240,7 +240,22 @@ any failure raises and exits non-zero.
       gradients of the input and of every leaf within 2e-4 of the dense
       route's autograd. (R5) the Trainer at ``.reduced()`` on a (4, 1)
       mesh, 4 steps checkpointed after step 3, restored onto (2, 2) bit
-      for bit, and its next loss within 2e-4 of the (4, 1) run's.
+      for bit, and its next loss within 2e-4 of the (4, 1) run's. (R6)
+      Zamba2's prefill SSD (bf16, B 4, S 512, 80 heads of 64, chunk 256)
+      through ``ssd_on_shards``, batch over data and heads over model: 1
+      wgmma launch a rank on 40 heads, the gathered output within 2e-2 of
+      the one-device kernel's.
+  (S) The dry run on this machine, mesh device type cuda (fake tensors
+      over a fake process group: nothing allocated, nothing launched).
+      (S1) R1's prefill on a fake (data 2, model 2) mesh: its collectives
+      by kind and the kernels' local shapes equal to R1's measured ones,
+      its arguments' bytes and its peak above them within 1 % of the
+      bytes rank 0's tensors requested of the allocator in R1.
+      (S2) ``run_cell`` on the 16 x 16 mesh for every arch at decode_32k
+      and StarCoder2-3B at every shape: every enabled cell ok, long_500k
+      skipped; FLOPs a rank x 256 against the unsharded step's, collective
+      bytes by kind, GiB a device against the card's. (S3) two hill-climb
+      variants. A pool of S_WORKERS processes; bounded at S_BOUND seconds.
   Phases M-R print their walls, tokens/s and peak memory; each draws from
   a generator of its own.
 
@@ -268,6 +283,11 @@ of two trees in one call, run each tree's script in turn.
 
 runs phase R alone (it computes its own references), with its gates,
 and prints R's wall but neither summary line.
+
+    python3 chip_smoke.py --s-only
+
+runs phase S alone, with its gates but S1's tie to R1 (phase R did not
+run), and neither summary line.
 """
 from __future__ import annotations
 
@@ -292,7 +312,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import tree  # noqa: E402
 from repro_torch.checkpoint import store  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ARCH_IDS, SHAPES, get_config  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
 from repro_torch.core import screen  # noqa: E402
 from repro_torch.core.hw_specs import FPGAS  # noqa: E402
@@ -314,9 +334,12 @@ from repro_torch.kernels.matmul.ref import matmul_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm.ops import rmsnorm  # noqa: E402
 from repro_torch.kernels.rmsnorm.rmsnorm import plan_for as rms_plan_for  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
-from repro_torch.kernels.ssd.ops import ssd  # noqa: E402
+from repro_torch.kernels.ssd.ops import ssd, ssd_on_shards  # noqa: E402
 from repro_torch.kernels.ssd.ssd import plan_for as ssd_plan_for  # noqa: E402
 from repro_torch.kernels.ssd.ref import ssd_ref  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.hillclimb import run_variant  # noqa: E402
+from repro_torch.launch.hlo_stats import kind_counts  # noqa: E402
 from repro_torch.launch.mesh import make_local_mesh, make_mesh, spawn_ranks  # noqa: E402
 from repro_torch.launch.specs import make_batch  # noqa: E402
 from repro_torch.models import (api, encdec, layers, moe, recurrent, ssm,  # noqa: E402
@@ -1862,6 +1885,13 @@ def peak_gb() -> float:
     return torch.cuda.max_memory_allocated() / 1e9
 
 
+def requested_bytes(which: str = "current") -> int:
+    """The bytes the tensors asked the caching allocator for (its
+    ``requested_bytes``), before it rounds a block up: what a count of
+    storage sizes sees."""
+    return torch.cuda.memory_stats()[f"requested_bytes.all.{which}"]
+
+
 def path_entry(got: dict) -> dict:
     return {"matmul": {"launches": got["matmul"], "launches_by_route": got["matmul_routes"]},
             "rmsnorm": {"launches": got["rmsnorm"]},
@@ -2650,6 +2680,8 @@ R_AUX_WEIGHT = 0.01
 R_TRAINER = ShapeSpec("r_trainer", "train", 64, 8)
 R_TRAINER_STEPS = 4  # checkpoints after step 3 (restored onto the other mesh) and step 4
 R_TRAINER_CKPT = 3
+R_SSD = (4, 512, 80, 64, 64, 256)  # Zamba2-2.7B's prefill SSD: B, S, heads, P, N, chunk
+R_SEEN: dict = {}  # rank 0's R1 collectives and launch shapes, for phase S
 
 
 def r_ep_config():
@@ -2733,6 +2765,14 @@ def r_references(tmp: str) -> dict:
     torch.save({k: g.cpu() for k, g in grads.items()}, os.path.join(tmp, "r4.pt"))
     del p, x, c, grads
     torch.cuda.empty_cache()
+
+    # R6: one bf16 SSD call at Zamba2's prefill shape on the one device's kernel
+    args = ssd_inputs(*R_SSD[:5], torch.bfloat16,
+                      torch.Generator(device="cuda").manual_seed(R_SEED + 3))
+    y, route = counted_ssd(args, R_SSD[5])
+    check(route == "wgmma", f"R6 one device: the SSD planned {route}")
+    torch.save({"args": [a.cpu() for a in args], "y": y.cpu()}, os.path.join(tmp, "r6.pt"))
+    del args, y
     return out
 
 
@@ -2844,17 +2884,29 @@ def r_rank(rank: int, world: int, tmp: str) -> dict:
     # R1: the seeded bf16 weights, each rank keeping its shards (the ranks
     # draw the whole model in turn: its peak is one rank's at a time)
     torch.cuda.reset_peak_memory_stats()
+    before = requested_bytes()
     params = init_params_on_mesh(cfg, mesh, seed=R_SEED, dtype=torch.bfloat16)
     draw_gb = peak_gb()
     torch.cuda.reset_peak_memory_stats()
     step = build_step(cfg, R_PREFILL, mesh=mesh)
     batch = make_batch(cfg, R_PREFILL, seed=R_SEED, device="cuda")
+    arg_bytes = requested_bytes() - before  # this rank's shards and batch
     logits, got, ms, comms, seen = r_sharded_counted(lambda: step(params, batch), shapes, 2)
     ref = torch.load(os.path.join(tmp, "r1.pt"))
     out["r1"] = {"err": local_err(logits, ref), "ref_max": ref.abs().max().item(),
                  "placements": str(tuple(logits.placements)), "launches": got, "ms": ms,
-                 "comms": comms, "shapes": seen, "peak_gb": peak_gb(), "draw_gb": draw_gb}
+                 "comms": comms, "shapes": seen, "peak_gb": peak_gb(), "draw_gb": draw_gb,
+                 "arg_bytes": arg_bytes}
     del logits, ref
+    # the step's own peak: what it allocates above its arguments (phase S1's count)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = requested_bytes()
+    logits = step(params, batch)
+    torch.cuda.synchronize()
+    out["r1"]["step_peak"] = requested_bytes("peak") - base
+    del logits
+    shapes.take()
 
     # R2: decode ticks on the one-device run's tokens (teacher-forced)
     ref = torch.load(os.path.join(tmp, "r2.pt"))
@@ -2917,6 +2969,26 @@ def r_rank(rank: int, world: int, tmp: str) -> dict:
         errs[k] = (g - want.cuda()).abs().max().item() / max(want.abs().max().item(), 1e-30)
     out["r4"] = {"errs": errs, "ms": ms, "peak_gb": peak_gb(), "experts": hi - lo}
     del p, x, c, grads, ref
+    torch.cuda.empty_cache()
+
+    # R6: the same SSD call, its batch split over `data` and its heads over
+    # `model` (ssd_on_shards): one kernel launch a rank, on its 40 heads
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    ref = torch.load(os.path.join(tmp, "r6.pt"))
+    want = [(Shard(0), Shard(2)), (Shard(0), Shard(2)), (Replicate(), Shard(0)),
+            (Shard(0), Replicate()), (Shard(0), Replicate())]
+    args = [distribute_tensor(a.cuda(), mesh, pl, src_data_rank=None)
+            for a, pl in zip(ref["args"], want)]
+    torch.cuda.synchronize()
+    reset_counts()
+    y = ssd_on_shards(*args, chunk=R_SSD[5])
+    torch.cuda.synchronize()
+    out["r6"] = {"launches": ssd.launches, "routes": dict(ssd.launches_by_route),
+                 "local": tuple(y.to_local().shape), "placements": str(tuple(y.placements)),
+                 "err": (y.full_tensor().float() - ref["y"].cuda().float()).abs().max().item(),
+                 "ref_max": ref["y"].float().abs().max().item()}
+    del args, y, ref
     torch.cuda.empty_cache()
 
     # R5: the Trainer on (4, 1), restored onto (2, 2)
@@ -2995,6 +3067,11 @@ def r_paths(results: list) -> dict:
                         k: sum(pick(r)[f"{kernel}_routes"][k] for r in results)
                         for k in pick(results[0])[f"{kernel}_routes"]}
         paths[name] = by
+    per = [r["r6"]["launches"] for r in results]
+    paths[f"{HYBRID_ARCH} prefill SSD on shards, 4 ranks on a (data 2, model 2) mesh (R6)"] = {
+        "ssd": {"launches": sum(per), "launches_per_rank": per,
+                "launches_by_route": {k: sum(r["r6"]["routes"][k] for r in results)
+                                      for k in results[0]["r6"]["routes"]}}}
     return paths
 
 
@@ -3140,6 +3217,23 @@ def phase_r() -> dict:
           f"{per_rank(results, 'r4', 'ms', 1)} ms; peak {per_rank(results, 'r4', 'peak_gb', 2)}"
           f" GB")
 
+    # R6: the SSD on shards against the one-device kernel
+    b, s, h, p, n, chunk = R_SSD
+    for rank, r in enumerate(results):
+        q = r["r6"]
+        check(q["launches"] == 1 and q["routes"]["wgmma"] == 1,
+              f"R6 rank {rank}: {q['launches']} SSD launches {q['routes']}, expected 1 wgmma")
+        check(q["local"] == (b // 2, s, h // 2, p), f"R6 rank {rank}: local {q['local']}")
+        check(q["err"] <= TOL[torch.bfloat16] * q["ref_max"],
+              f"R6 rank {rank}: against the one device {q['err'] / q['ref_max']:.3e}")
+    q = r0["r6"]
+    print(f"R6 bfloat16 SSD B={b} S={s} H={h} P={p} N={n} chunk {chunk} through ssd_on_shards, "
+          f"batch over data and heads over model: output {q['placements']}, local {q['local']}, "
+          f"{[r['r6']['launches'] for r in results]} launch a rank (all wgmma); gathered output "
+          f"against the one-device kernel {max(r['r6']['err'] for r in results) / q['ref_max']:.3e}"
+          f" (gate {TOL[torch.bfloat16]})")
+    R_SEEN["r1"] = {k: r0["r1"][k] for k in ("comms", "shapes", "arg_bytes", "step_peak")}
+
     # R5: the Trainer on (4, 1), restored onto (2, 2)
     for rank, r in enumerate(results):
         q = r["r5"]
@@ -3156,6 +3250,112 @@ def phase_r() -> dict:
           f"the next step's loss {q['loss_b']:.6f} against (4, 1)'s "
           f"{q['losses'][R_TRAINER_CKPT]:.6f}")
     return r_paths(results)
+
+
+# ---------------------------------------------------------------------------
+# Phase S: the dry run (fake tensors over a fake process group)
+# ---------------------------------------------------------------------------
+
+S_MESH = (2, 2)
+S1_ARG_TOL, S1_PEAK_TOL = 0.01, 0.01  # S1's memory against R1's requested bytes
+S_PROD = 256  # ranks of the single-pod mesh (16 x 16)
+S_WORKERS = 7  # processes of the S2/S3 pool (the machine has 8 cores)
+S_BOUND = 180  # seconds: phase S's wall
+S_CELLS = [(a, "decode_32k") for a in ARCH_IDS] + \
+    [(LM_ARCH, s) for s in ("train_4k", "prefill_32k", "long_500k")]
+S_VARIANT_CELL = (LM_ARCH, "train_4k")
+S_VARIANTS = ("v0_baseline", "v4_remat_dots")
+
+
+def s_job(job: tuple):
+    """One job of phase S's pool (a spawned process, its own fake process
+    group): ("cell", arch, shape) -> run_cell's record on the 16 x 16 mesh;
+    ("whole", arch, shape) -> the unsharded step's FLOPs; ("variant", name)
+    -> run_variant's record on S_VARIANT_CELL."""
+    kind, *rest = job
+    if kind == "cell":
+        return dryrun.run_cell(*rest, False, device_type="cuda")
+    if kind == "whole":
+        arch, shape = rest
+        return dryrun.count_unsharded(get_config(arch), SHAPES[shape], device_type="cuda").flops
+    return run_variant(*S_VARIANT_CELL, rest[0], device_type="cuda")
+
+
+def phase_s() -> dict:
+    """The dry run on this machine, mesh device type cuda: S1 StarCoder2-3B's
+    prefill on a fake (data 2, model 2) mesh, its collectives by kind and
+    its kernels' local shapes equal to phase R1's measured ones; S2 run_cell
+    on the 16 x 16 mesh for every arch at decode_32k and StarCoder2-3B at
+    every shape (long_500k skipped), each with its FLOPs a rank against the
+    unsharded step's; S3 two hill-climb variants. Nothing is allocated on
+    the card and nothing launches. Bounded at S_BOUND seconds."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.train.steps import BASELINE
+
+    t0 = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    with dryrun.fake_world(S_MESH, device_type="cuda") as mesh:
+        c = dryrun.count_step(cfg, R_PREFILL, mesh, BASELINE, param_dtype=torch.bfloat16)
+    st = c.collective_stats()
+    r1 = R_SEEN.get("r1")
+    if r1 is None:
+        print("S1 not tied to R1: phase R did not run in this call")
+    else:
+        want = kind_counts(r1["comms"])
+        check(st.count_by_kind == want,
+              f"S1: collectives {st.count_by_kind}, R1 measured {want}")
+        for name in ("matmul", "rmsnorm", "flash_attention"):
+            check(c.kernel_shapes.get(name, {}) == r1["shapes"][name],
+                  f"S1: {name} local shapes {c.kernel_shapes.get(name)}, R1 "
+                  f"{r1['shapes'][name]}")
+        # memory: the arguments' local bytes and the step's peak above them,
+        # against rank 0's requested bytes in R1 (the matmul's K-split
+        # workspace is unseen here)
+        for what, got, want, tol in (("arguments", c.argument_bytes, r1["arg_bytes"], S1_ARG_TOL),
+                                     ("step peak", c.peak_bytes, r1["step_peak"], S1_PEAK_TOL)):
+            print(f"S1 {what}: counted {got} B, R1 measured {want} B "
+                  f"({got / want - 1:+.4%}; gate {tol:.0%})")
+            check(abs(got - want) <= tol * want,
+                  f"S1: {what} counted {got} B, R1 measured {want} B")
+    print(f"S1 {LM_ARCH} prefill B={PREFILL_BATCH} S={PREFILL_SEQ} bf16 on a fake (data 2, "
+          f"model 2) mesh, device cuda: {c.flops:.6e} FLOPs a rank, collectives "
+          f"{st.count_by_kind} ({st.total_bytes} bytes){'' if r1 is None else ', equal to R1'}; "
+          f"local products {sorted(c.kernel_shapes['matmul'].items())}; run {c.run_s:.2f} s")
+
+    jobs = [("cell", a, sh) for a, sh in S_CELLS] + \
+        [("whole", a, sh) for a, sh in S_CELLS if sh != "long_500k"] + \
+        [("variant", v) for v in S_VARIANTS]
+    with ProcessPoolExecutor(S_WORKERS, mp_context=mp.get_context("spawn")) as pool:
+        got = dict(zip(jobs, pool.map(s_job, jobs)))
+    card_gib = torch.cuda.get_device_properties(0).total_memory / 2**30
+    for arch, sh in S_CELLS:
+        rec = got[("cell", arch, sh)]
+        if sh == "long_500k":
+            check(rec["status"] == "skipped", f"S2 {arch} {sh}: {rec['status']}")
+            print(f"S2 {arch} {sh}: skipped ({rec['reason']})")
+            continue
+        check(rec["status"] == "ok", f"S2 {arch} {sh}: {rec.get('error', rec['status'])}")
+        whole = got[("whole", arch, sh)]
+        flops, coll = rec["exact"]["flops"], rec["collectives"]
+        gib = rec["memory"]["total_per_device"] / 2**30
+        print(f"S2 {arch} {sh} on 16x16: {flops:.6e} FLOPs a rank (x{S_PROD} = "
+              f"{flops * S_PROD:.6e} against the unsharded step's {whole:.6e}, ratio "
+              f"{flops * S_PROD / whole:.4f}); collectives "
+              f"{ {k: v for k, v in coll['bytes_by_kind'].items() if v} } bytes "
+              f"({coll['total_count']} calls); {gib:.2f} GiB a device of the card's "
+              f"{card_gib:.1f} GiB; run {rec['run_s']} s")
+    for v in S_VARIANTS:
+        rec = got[("variant", v)]
+        e = rec["exact"]
+        print(f"S3 {'/'.join(S_VARIANT_CELL)} {v}: {e['flops']:.6e} FLOPs a rank, "
+              f"{e['coll_total']:.6e} collective bytes, temp "
+              f"{rec['memory']['temp_size_in_bytes'] / 2**30:.2f} GiB, run {rec['run_s']} s")
+    wall = time.perf_counter() - t0
+    print(f"S wall {wall:.1f} s (bound {S_BOUND} s, {S_WORKERS} processes)")
+    check(wall <= S_BOUND, f"phase S took {wall:.1f} s, over its bound of {S_BOUND} s")
+    return {}
 
 
 def matmul_floors(rows, hybrid_rows) -> None:
@@ -3255,8 +3455,8 @@ def lm_entries(rows, launches, serving, hybrid_rows, hybrid_launches, hybrid_ser
 
 
 def main() -> int:
-    if sys.argv[1:] not in ([], ["--q-only"], ["--r-only"]):
-        print("usage: chip_smoke.py [--q-only | --r-only]", file=sys.stderr)
+    if sys.argv[1:] not in ([], ["--q-only"], ["--r-only"], ["--s-only"]):
+        print("usage: chip_smoke.py [--q-only | --r-only | --s-only]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs an NVIDIA GPU",
@@ -3295,6 +3495,9 @@ def main() -> int:
         phase_r()
         print(f"R wall {time.perf_counter() - t0:.1f} s")
         return 0
+    if sys.argv[1:] == ["--s-only"]:
+        phase_s()
+        return 0
     rows = phase_a(gen)
     launches = phase_b(gen)
     keep = {}  # phases C and M leave on the host what phase Q is held to
@@ -3320,7 +3523,8 @@ def main() -> int:
         print(f"{name} wall {time.perf_counter() - t0:.1f} s")
     zoo = {}
     for name, phase in (("M", lambda: phase_m(keep)), ("N", phase_n), ("O", phase_o),
-                        ("P", phase_p), ("Q", lambda: phase_q(keep)), ("R", phase_r)):
+                        ("P", phase_p), ("Q", lambda: phase_q(keep)), ("R", phase_r),
+                        ("S", phase_s)):
         t0 = time.perf_counter()
         zoo.update(phase())
         torch.cuda.empty_cache()

@@ -1,7 +1,8 @@
 """Config registry of the port: ``get_config("<arch-id>")`` -> ArchConfig.
 
 ``base.py`` and the config modules are verbatim copies of ``repro/configs``,
-one for every architecture of the JAX package.
+one for every architecture of the JAX package; ``all_configs`` and
+``cell_enabled`` are the reference registry's own.
 """
 from __future__ import annotations
 
@@ -34,5 +35,18 @@ def get_config(arch_id: str) -> ArchConfig:
     return mod.CONFIG
 
 
+def all_configs() -> dict[str, ArchConfig]:
+    return {a: get_config(a) for a in ARCH_IDS}
+
+
+# Which (arch x shape) cells run. long_500k needs sub-quadratic attention:
+# run for SSM/hybrid/SWA archs, skip for pure full-attention ones (noted in
+# DESIGN.md SS Arch-applicability).
+def cell_enabled(cfg: ArchConfig, shape: ShapeSpec) -> tuple[bool, str]:
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, "full attention is quadratic at 500k; skipped per spec"
+    return True, ""
+
+
 __all__ = ["ARCH_IDS", "SHAPES", "ArchConfig", "MoECfg", "SSMCfg", "ShapeSpec",
-           "get_config"]
+           "get_config", "all_configs", "cell_enabled"]

@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.distributed.tensor import DTensor
 
 
@@ -20,8 +21,17 @@ def refuse_dtensor(name: str, *tensors: torch.Tensor) -> None:
     """Raise on a DTensor: its ``data_ptr()`` is 0, so a ctypes launch would
     read a null pointer. A DTensor reaches a kernel as its local shard,
     through the wrapper's registered op (``matmul_on_shards``,
-    ``rmsnorm_on_shards``, ``flash_attention_on_shards``)."""
+    ``rmsnorm_on_shards``, ``flash_attention_on_shards``, ``ssd_on_shards``)."""
     if any(isinstance(t, DTensor) for t in tensors):
         raise TypeError(f"{name} takes plain tensors, and got a DTensor: a sharded tensor "
                         f"reaches the kernel as its local shard, through {name}_on_shards "
                         f"where there is one")
+
+
+def is_fake(*tensors: torch.Tensor) -> bool:
+    """Whether any of ``tensors`` is a fake tensor (a shape, a dtype and a
+    device, no storage: the dry run's). No kernel runs on one: a wrapper
+    hands it to its registered op, whose fake implementation gives the
+    output's shape and launches nothing, and whose FLOP formula the dry
+    run's counter reads."""
+    return any(isinstance(t, FakeTensor) for t in tensors)

@@ -11,7 +11,11 @@ raises) on the route ``flash_attention.plan_for`` picks; a CPU tensor takes
 the plain version ``attention_ref``. ``flash_attention.launches`` counts
 kernel launches, one per call, and ``flash_attention.launches_by_route``
 splits them by route (``wgmma``, ``simt``).
-It raises when autograd would record the call (``refuse_grad``): the
+A fake tensor (the dry run's) takes the op's fake implementation
+(``is_fake``): nothing launches, and the op's FLOP formula counts
+4·B·H·S·Sk·hd, the full square of scores, as the plain attention's two
+products count it (the kernel skips the masked blocks). It raises when
+autograd would record the call (``refuse_grad``): the
 kernel has no backward, and training takes the plain route. It raises on a
 DTensor (``refuse_dtensor``): ``flash_attention_on_shards`` takes DTensors,
 through the op ``repro_torch::flash_attention``, whose sharding strategies
@@ -23,8 +27,9 @@ from __future__ import annotations
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import register_sharding
+from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels import refuse_dtensor, refuse_grad
+from repro_torch.kernels import is_fake, refuse_dtensor, refuse_grad
 from .flash_attention import DTYPE_CODES, ROUTES, launch, plan_for
 from .ref import attention_ref
 
@@ -65,6 +70,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     """q (B, S, H, hd); k, v (B, Sk, KV, hd) -> (B, S, H, hd)."""
     _check(q, k, v, window)
     refuse_grad("flash_attention", q, k, v)
+    if is_fake(q, k, v):
+        return torch.ops.repro_torch.flash_attention(q, k, v, causal, window)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
     out = torch.empty_like(q)
@@ -91,12 +98,20 @@ def attn_fn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool =
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
 def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
               window: int | None) -> torch.Tensor:
-    return flash_attention(q, k, v, causal=causal, window=window)
+    # contiguous, as the fake implementation says (the plain version's need not be)
+    return flash_attention(q, k, v, causal=causal, window=window).contiguous()
 
 
 @_flash_op.register_fake
 def _(q, k, v, causal, window):
     return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_flops(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
+    """4·B·H·S·Sk·hd: QKᵀ and PV over every (query, key) pair."""
+    b, s, h, hd = q_shape
+    return 4 * b * h * s * k_shape[1] * hd
 
 
 @register_sharding(torch.ops.repro_torch.flash_attention.default)

@@ -7,7 +7,9 @@ tensor launches the CUDA kernel (or raises) on the route ``matmul.plan_for``
 picks; a CPU tensor takes the plain version ``matmul_ref``.
 ``matmul.launches`` counts kernel launches, one per call, and
 ``matmul.launches_by_route`` splits them by route (``wgmma``, ``simt``).
-It raises when autograd would record the call (``refuse_grad``): the
+A fake tensor (the dry run's) takes the op's fake implementation
+(``is_fake``): nothing launches, and the op's FLOP formula, 2·M·K·N,
+counts it. It raises when autograd would record the call (``refuse_grad``): the
 kernel has no backward, and training takes the plain route. It raises on a
 DTensor (``refuse_dtensor``): ``matmul_on_shards`` takes DTensors, through
 the op ``repro_torch::matmul``, whose sharding strategies DTensor reads, so
@@ -18,8 +20,9 @@ from __future__ import annotations
 import torch
 from torch.distributed.tensor import Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import register_sharding
+from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels import refuse_dtensor, refuse_grad
+from repro_torch.kernels import is_fake, refuse_dtensor, refuse_grad
 from .matmul import DTYPE_CODES, ROUTES, launch, plan_for
 from .ref import matmul_ref
 
@@ -56,6 +59,8 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
     """a (M, K) @ b (K, N) -> (M, N) in ``out_dtype or a.dtype``, fp32 sums."""
     _check(a, b, out_dtype)
     refuse_grad("matmul", a, b)
+    if is_fake(a, b):
+        return torch.ops.repro_torch.matmul(a, b, out_dtype)
     if a.device.type == "cpu":
         return matmul_ref(a, b, out_dtype=out_dtype)
     out = torch.empty((a.shape[0], b.shape[1]), dtype=out_dtype or a.dtype, device=a.device)
@@ -78,6 +83,12 @@ def _matmul_op(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype | None) 
 @_matmul_op.register_fake
 def _(a, b, out_dtype):
     return a.new_empty((a.shape[0], b.shape[1]), dtype=out_dtype or a.dtype)
+
+
+@register_flop_formula(torch.ops.repro_torch.matmul)
+def _matmul_flops(a_shape, b_shape, *args, out_shape=None, **kwargs) -> int:
+    """2·M·K·N, as ``torch.utils.flop_counter`` counts ``aten.mm``."""
+    return 2 * a_shape[0] * a_shape[1] * b_shape[1]
 
 
 @register_sharding(torch.ops.repro_torch.matmul.default)

@@ -4,7 +4,10 @@ The counterpart of ``repro/kernels/rmsnorm/ops.py::rmsnorm``: it takes the
 model-native (..., D) activations. A CUDA tensor launches the CUDA kernel
 (or raises) as ``rmsnorm.plan_for`` cuts the rows; a CPU tensor takes the
 plain version ``rmsnorm_ref``. ``rmsnorm.launches`` counts kernel launches.
-It raises when autograd would record the call (``refuse_grad``): the
+A fake tensor (the dry run's) takes the op's fake implementation
+(``is_fake``): nothing launches, and the op's FLOP formula counts 0 (the
+dry run counts products and convolutions only). It raises when autograd
+would record the call (``refuse_grad``): the
 kernel has no backward, and training takes the plain route. It raises on a
 DTensor (``refuse_dtensor``): ``rmsnorm_on_shards`` takes DTensors, through
 the op ``repro_torch::rmsnorm``, whose sharding strategies DTensor reads, so
@@ -15,8 +18,9 @@ from __future__ import annotations
 import torch
 from torch.distributed.tensor import Replicate, Shard
 from torch.distributed.tensor.experimental import register_sharding
+from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels import refuse_dtensor, refuse_grad
+from repro_torch.kernels import is_fake, refuse_dtensor, refuse_grad
 from .ref import rmsnorm_ref
 from .rmsnorm import DTYPE_CODES, plan_for, rmsnorm_rows
 
@@ -48,6 +52,8 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torch
     """x (..., D); scale (D,) -> (..., D) in x's dtype, fp32 arithmetic."""
     _check(x, scale)
     refuse_grad("rmsnorm", x, scale)
+    if is_fake(x, scale):
+        return torch.ops.repro_torch.rmsnorm(x, scale, eps)
     if x.device.type == "cpu":
         return rmsnorm_ref(x, scale, eps)
     out = torch.empty_like(x)
@@ -68,6 +74,13 @@ def _rmsnorm_op(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tenso
 @_rmsnorm_op.register_fake
 def _(x, scale, eps):
     return torch.empty_like(x)
+
+
+@register_flop_formula(torch.ops.repro_torch.rmsnorm)
+def _rmsnorm_flops(*args, out_shape=None, **kwargs) -> int:
+    """0: no product, as the reference's ``exact_cost`` counts only dots and
+    convolutions."""
+    return 0
 
 
 @register_sharding(torch.ops.repro_torch.rmsnorm.default)

@@ -11,14 +11,23 @@ here. A CUDA tensor launches the CUDA kernels (or raises) on the route
 ``ssd.launches`` counts kernel launches, one per call (the wgmma route's
 two kernels are one ctypes call), and ``ssd.launches_by_route`` splits
 them by route (``wgmma``, ``simt``).
-It raises when autograd would record the call (``refuse_grad``): the
-kernel has no backward, and training takes the plain route.
+A fake tensor (the dry run's) takes the op's fake implementation
+(``is_fake``): nothing launches, and the op's FLOP formula counts the
+products of the chunked scan as ``ssd_ref`` computes them. It raises when
+autograd would record the call (``refuse_grad``): the kernel has no
+backward, and training takes the plain route. It raises on a DTensor
+(``refuse_dtensor``): ``ssd_on_shards`` takes DTensors, through the op
+``repro_torch::ssd``, whose sharding strategies DTensor reads, so that each
+rank's kernel runs on its local batch rows and heads.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor.experimental import register_sharding
+from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels import refuse_dtensor, refuse_grad
+from repro_torch.kernels import is_fake, refuse_dtensor, refuse_grad
 from .ref import ssd_ref
 from .ssd import DTYPE_CODES, ROUTES, plan_for, ssd_scan, state_scratch
 
@@ -71,6 +80,8 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor,
     """x (B, S, H, P); dt (B, S, H); a_log (H,); b, c (B, S, N) -> (B, S, H, P)."""
     q = _check(x, dt, a_log, b, c, chunk)
     refuse_grad("ssd", x, dt, a_log, b, c)
+    if is_fake(x, dt, a_log, b, c):
+        return torch.ops.repro_torch.ssd(x, dt, a_log, b, c, chunk)
     if x.device.type == "cpu":
         return ssd_ref(x, dt, a_log, b, c, chunk)
     a = -torch.exp(a_log.float())
@@ -85,3 +96,50 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor,
 
 ssd.launches = 0
 ssd.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+@torch.library.custom_op("repro_torch::ssd", mutates_args=())
+def _ssd_op(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor, chunk: int) -> torch.Tensor:
+    # a shard split along the heads is a strided view of its rows; the output
+    # is contiguous, as the fake implementation says (the plain version's need not be)
+    return ssd(*(t.contiguous() for t in (x, dt, a_log, b, c)), chunk=chunk).contiguous()
+
+
+@_ssd_op.register_fake
+def _(x, dt, a_log, b, c, chunk):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+def ssd_flops(x_shape, n: int, chunk: int) -> int:
+    """The products of ``ssd_ref``'s chunked scan for x (B, S, H, P), states
+    of width N and chunks of ``q = min(chunk, S)`` rows: C·Bᵀ (2·B·S·q·N),
+    the intra-chunk (C·Bᵀ ∘ L)·x (2·B·S·q·H·P), the chunk states and the
+    inter-chunk outputs (2·B·S·H·P·N each)."""
+    bsz, s, h, p = x_shape
+    q = min(chunk, s)
+    return 2 * bsz * s * q * n + 2 * bsz * s * q * h * p + 4 * bsz * s * h * p * n
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd)
+def _ssd_flops(x_shape, dt_shape, a_shape, b_shape, c_shape, chunk, *, out_shape=None,
+               **kwargs) -> int:
+    return ssd_flops(x_shape, b_shape[-1], chunk)
+
+
+@register_sharding(torch.ops.repro_torch.ssd.default)
+def _ssd_strategies(x, dt, a_log, b, c, chunk):
+    """Per mesh dim: the batch split (x, dt, b, c alike, a_log replicated),
+    or the heads (x and dt along H, a_log with them; b and c replicated,
+    the one group every head reads); or all replicated."""
+    return [([Shard(0)], [Shard(0), Shard(0), Replicate(), Shard(0), Shard(0), None]),
+            ([Shard(2)], [Shard(2), Shard(2), Shard(0), Replicate(), Replicate(), None]),
+            ([Replicate()], [Replicate()] * 5 + [None])]
+
+
+def ssd_on_shards(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor,
+                  c: torch.Tensor, *, chunk: int = 128) -> torch.Tensor:
+    """``ssd`` of DTensors of one mesh: each rank's kernel on its local batch
+    rows and heads (one launch a rank, counted in ``ssd.launches``)."""
+    refuse_grad("ssd", x, dt, a_log, b, c)
+    return torch.ops.repro_torch.ssd(x, dt, a_log, b, c, chunk)

@@ -30,7 +30,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention.ops import attn_fn as flash_attn_fn
 from repro_torch.parallel.act import constrain
 from .layers import (_randn, embed, embed_init, gqa_attention, gqa_decode_attention, init_attention,
-                     init_layernorm, init_mlp, layer_norm, linear, mlp)
+                     init_layernorm, init_mlp, layer_norm, linear, mlp, split_last)
 from .transformer import _device, _stack, layer, rematted, softmax_xent, unstack
 
 
@@ -104,9 +104,8 @@ def encode(params, cfg: ArchConfig, frames: torch.Tensor, *, compute_dtype=torch
 
 def _cross_kv(memory, p, cfg: ArchConfig, use_kernel: bool):
     """The cross-attention's K and V (B, F, n_kv, hd) from the encoder's output."""
-    b = memory.shape[0]
-    mk = linear(memory, p["wk"], use_kernel).reshape(b, -1, cfg.n_kv, cfg.head_dim)
-    mv = linear(memory, p["wv"], use_kernel).reshape(b, -1, cfg.n_kv, cfg.head_dim)
+    mk = split_last(linear(memory, p["wk"], use_kernel), cfg.n_kv, cfg.head_dim)
+    mv = split_last(linear(memory, p["wv"], use_kernel), cfg.n_kv, cfg.head_dim)
     return mk, mv
 
 
@@ -187,7 +186,7 @@ def decode_step(params, cfg: ArchConfig, cache, tokens: torch.Tensor, pos: torch
     """tokens (B, 1) integer; pos (B,) integer -> (logits (B, vocab), new
     cache). The cache passed in is not changed."""
     x = embed(params["embed"], tokens, compute_dtype)
-    x = x + params["pos_dec"][pos].to(compute_dtype)[:, None]
+    x = x + embed(params["pos_dec"], pos, compute_dtype)[:, None]
     k_new, v_new = [], []
     for i in range(cfg.n_layers):
         bp = layer(params["dec_blocks"], i)

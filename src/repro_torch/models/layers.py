@@ -22,6 +22,7 @@ here changes.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -32,7 +33,8 @@ from repro_torch.kernels.matmul.ops import matmul, matmul_on_shards
 from repro_torch.kernels.matmul.ref import matmul_ref
 from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_on_shards
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
-from repro_torch.parallel.act import constrain, gathered, summed
+from repro_torch.parallel.act import (batch_heads_spec, constrain, fitted_placements, gathered,
+                                      local_apply, pinned, summed)
 
 # ---------------------------------------------------------------------------
 # Initializers
@@ -68,6 +70,8 @@ def linear(x: torch.Tensor, w: torch.Tensor, use_kernel: bool = False) -> torch.
     until the parts are summed, so the result is rounded once, as on one
     card."""
     w = gathered(w).to(x.dtype).contiguous()
+    if isinstance(x, DTensor):
+        x = _rows_whole(x)
     x2 = x.reshape(-1, x.shape[-1])
     if not isinstance(x2, DTensor):
         y = matmul(x2, w) if use_kernel else matmul_ref(x2, w)
@@ -76,7 +80,19 @@ def linear(x: torch.Tensor, w: torch.Tensor, use_kernel: bool = False) -> torch.
     out_dtype = torch.float32 if split_k else None
     y = (matmul_on_shards(x2, w, out_dtype=out_dtype) if use_kernel
          else matmul_ref(x2, w, out_dtype=out_dtype))
-    return summed(y).to(x.dtype).reshape(*x.shape[:-1], w.shape[1])
+    return pinned(summed(y).to(x.dtype).reshape(*x.shape[:-1], w.shape[1]))
+
+
+def _rows_whole(x: DTensor) -> DTensor:
+    """``x`` gathered along every split dim but the batch (dim 0) and the
+    contracted last one: a sequence-parallel activation meets a product
+    whole (Megatron's all-gather before the column-parallel product), and
+    flattening the rows then keeps a plain split of the batch."""
+    inner = [p.is_shard() and p.dim not in (0, x.ndim - 1) for p in x.placements]
+    if not any(inner):
+        return x
+    return x.redistribute(x.device_mesh, tuple(Replicate() if i else p
+                                               for i, p in zip(inner, x.placements)))
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor, dtype) -> torch.Tensor:
@@ -85,6 +101,21 @@ def embed(table: torch.Tensor, tokens: torch.Tensor, dtype) -> torch.Tensor:
     if isinstance(table, DTensor):
         return F.embedding(tokens, gathered(table)).to(dtype)
     return table[tokens].to(dtype)
+
+
+def split_last(t: torch.Tensor, *sizes: int) -> torch.Tensor:
+    """``t`` with its last dim split into ``sizes`` (heads, head dim). A
+    DTensor whose last dim is split over mesh axes that do not divide the
+    first of ``sizes`` (24 heads over a 16-way ``model`` axis) first gathers
+    those axes: a split that cuts a head cannot become a split of heads.
+    The result's gradient takes its forward placements (``act.pinned``)."""
+    if isinstance(t, DTensor):
+        last, mesh = t.ndim - 1, t.device_mesh
+        ways = math.prod(mesh.size(i) for i, p in enumerate(t.placements) if p.is_shard(last))
+        if sizes[0] % ways:
+            t = t.redistribute(mesh, tuple(Replicate() if p.is_shard(last) else p
+                                           for p in t.placements))
+    return pinned(t.reshape(*t.shape[:-1], *sizes))
 
 
 def init_rmsnorm(d: int, dtype=torch.float32, *, device="cpu"):
@@ -179,10 +210,10 @@ def gqa_attention(x, params, n_heads: int, n_kv: int, *, rope: bool = True,
     b, s, d = x.shape
     hd = params["wq"].shape[1] // n_heads
 
-    q = constrain(linear(x, params["wq"], use_kernel).reshape(b, s, n_heads, hd), "heads")
+    q = constrain(split_last(linear(x, params["wq"], use_kernel), n_heads, hd), "heads")
     if kv_override is None:
-        k = linear(x, params["wk"], use_kernel).reshape(b, s, n_kv, hd)
-        v = linear(x, params["wv"], use_kernel).reshape(b, s, n_kv, hd)
+        k = split_last(linear(x, params["wk"], use_kernel), n_kv, hd)
+        v = split_last(linear(x, params["wv"], use_kernel), n_kv, hd)
     else:
         k, v = kv_override
 
@@ -194,8 +225,10 @@ def gqa_attention(x, params, n_heads: int, n_kv: int, *, rope: bool = True,
 
     if attn_fn is not None:
         out = attn_fn(q, k, v, causal=causal, window=window)
+    elif isinstance(q, DTensor):
+        out = _attend_on_shards(q, k, v, causal, window)
     else:
-        out = _attend(_whole_heads(q), _whole_heads(k), _whole_heads(v), causal, window)
+        out = _attend(q, k, v, causal, window)
     return linear(constrain(out.reshape(b, s, -1), "attn_out"), params["wo"], use_kernel)
 
 
@@ -214,12 +247,27 @@ def _attend(q, k, v, causal: bool, window):
     return torch.einsum("bngst,btnh->bsngh", probs, v).reshape(b, s, n_heads * hd)
 
 
+def _attend_on_shards(q, k, v, causal: bool, window):
+    """``_attend`` of DTensors on each rank's local shards: the batch split
+    over the data axes and the heads over ``model`` where both H and KV
+    divide (a rank's query heads then meet their own KV groups), else
+    whole heads. Its einsums flatten (B, KV) into one batch dim, which
+    DTensor cannot do in either pass while both are split."""
+    mesh = q.device_mesh
+    pq = fitted_placements(batch_heads_spec(mesh, 4, 2), q)
+    pk = fitted_placements(batch_heads_spec(mesh, 4, 2), k)
+    if pq != pk:
+        pq = fitted_placements(batch_heads_spec(mesh, 4), q)
+        pk = fitted_placements(batch_heads_spec(mesh, 4), k)
+    return local_apply(functools.partial(_attend, causal=causal, window=window), (q, k, v),
+                       (pq, pk, pk), pq)
+
+
 def _whole_heads(t):
-    """A DTensor with every placement but its batch split made ``Replicate``.
-    The plain attention's einsums flatten (B, KV) into one batch dim, which
-    DTensor refuses (torch 2.11) while both are split; the flash kernel
-    takes split heads instead (``attn_fn``). At decode, one token's q, k
-    and v are small beside the sequence-sharded cache they meet."""
+    """A DTensor with every placement but its batch split made ``Replicate``:
+    decode's one token of q, k and v, small beside the sequence-sharded
+    cache they meet (the attention's einsums flatten (B, KV) into one batch
+    dim, which DTensor refuses (torch 2.11) while both are split)."""
     if not isinstance(t, DTensor):
         return t
     return t.redistribute(t.device_mesh,
@@ -247,9 +295,9 @@ def gqa_decode_attention(x, params, n_heads: int, n_kv: int, k_cache, v_cache, w
     rope_pos = write_pos if rope_pos is None else rope_pos
     valid_upto = write_pos if valid_upto is None else valid_upto
 
-    q = linear(x, params["wq"], use_kernel).reshape(b, 1, n_heads, hd)
-    k = linear(x, params["wk"], use_kernel).reshape(b, 1, n_kv, hd)
-    v = linear(x, params["wv"], use_kernel).reshape(b, 1, n_kv, hd)
+    q = split_last(linear(x, params["wq"], use_kernel), n_heads, hd)
+    k = split_last(linear(x, params["wk"], use_kernel), n_kv, hd)
+    v = split_last(linear(x, params["wv"], use_kernel), n_kv, hd)
     if rope:
         q = apply_rope(q, rope_pos[:, None], rope_theta)
         k = apply_rope(k, rope_pos[:, None], rope_theta)
@@ -302,6 +350,12 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     to x's dtype as the JAX package rounds it (``F.silu`` rounds once, which
     in bf16 differs in about a third of the elements)."""
     return x * (1 / (1 + torch.exp(-x)))
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``'s formula, logaddexp(x, 0) = max(x, 0) +
+    log1p(exp(-|x|)), from elementwise ops that DTensor has rules for."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
 
 
 def mlp(x, params, activation: str = "silu", *, use_kernel: bool = False):

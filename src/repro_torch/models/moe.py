@@ -33,16 +33,33 @@ router enter the expert region through an identity whose backward sums
 their cotangents over the expert axis (the transpose of a replicated input
 to the reference's ``shard_map``), so each rank's expert leaves take their
 own gradients and the router and input take the whole layer's.
+
+On a DTensor mesh (``train.steps.build_step(mesh=)``) ``moe_mlp`` runs
+``_moe_mlp_mesh``: the same dispatch over the global tokens, its tokens
+split over the data axes and its experts over ``model`` (where the experts
+divide; the reference's ``experts`` spec), each rank computing on its
+local shards. The slots are the global ones: the assignments each data
+rank counts per (choice, expert) are all-gathered, and each assignment's
+slot is the choices before it, the data ranks before it and its place
+among this rank's tokens, as the global k-major order gives it. Each rank
+writes its kept tokens into the buffers of its experts at those slots, the
+buffers are reduce-scattered over the data axes along the slots (every
+slot filled by one token, so the sum is exact), each rank runs its experts
+on its share of the slots, the outputs are all-gathered back, and each
+rank gathers its tokens' outputs from its experts; the parts are summed
+over ``model`` in fp32. An ``_ep_mesh`` names the same layout there (``_moe_mlp_ep``).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention.ops import attn_fn as flash_attn_fn
-from repro_torch.parallel.act import constrain, ep_mesh
+from repro_torch.parallel.act import constrain, ep_mesh, fitted_placements, gathered
+from repro_torch.parallel.sharding import dp_spec
 from repro_torch.parallel.collectives import all_reduce, axis_group
 from .layers import (_randn, dense_init, embed, embed_init, gqa_attention, gqa_decode_attention,
                      init_attention, init_mlp, init_rmsnorm, linear, mlp, rms_norm, silu)
@@ -97,25 +114,35 @@ def capacity(t: int, cfg: ArchConfig) -> int:
     return max(int(math.ceil(t * e.top_k * e.capacity_factor / e.n_experts)), 4)
 
 
-def _slots(expert_idx: torch.Tensor, n_local: int, e_offset: int, cap: int):
+def _slots(expert_idx: torch.Tensor, n_local: int, e_offset: int, cap: int, offsets=None):
     """The slots of the k*T assignments, k-major (all first choices, then all
     second ones), in the ``n_local`` experts e_offset..: (flat local experts,
     clipped to the range; slots, clipped to ``cap``; kept mask; assignments
-    per local expert, dropped ones included). An assignment to an expert out
-    of the range sorts after every local one, takes no slot and is not kept."""
+    per local expert, dropped ones included). An assignment's slot is the
+    number of assignments to its expert before it in the k-major order:
+    those of the earlier choices (the offset of its (choice, expert)) and
+    those of its own choice before it. ``offsets`` maps the (k, n_local)
+    counts per (choice, expert) to those offsets (the mesh's global ones);
+    by default they are the counts of the earlier choices. An assignment to
+    an expert out of the range sorts after every local one, takes no slot
+    and is not kept."""
+    t, k = expert_idx.shape
     flat_e = expert_idx.t().reshape(-1) - e_offset                    # (k*T,)
     in_range = (flat_e >= 0) & (flat_e < n_local)
     flat_e = torch.clamp(flat_e, 0, n_local - 1)
+    key = torch.arange(k, device=flat_e.device).repeat_interleave(t) * n_local + flat_e
     # a scatter, not bincount: bincount on a CUDA tensor waits for the device
-    counts = torch.zeros(n_local, dtype=flat_e.dtype, device=flat_e.device).scatter_add_(
-        0, flat_e, in_range.to(flat_e.dtype))
-    order = torch.argsort(torch.where(in_range, flat_e, n_local), stable=True)
-    starts = torch.cumsum(counts, 0) - counts
-    slot_sorted = torch.arange(flat_e.shape[0], device=flat_e.device) - starts[flat_e[order]]
-    slot = torch.empty_like(slot_sorted)
-    slot[order] = slot_sorted
+    count = torch.zeros(k * n_local, dtype=key.dtype, device=key.device).scatter_add_(
+        0, key, in_range.to(key.dtype))
+    order = torch.argsort(torch.where(in_range, key, k * n_local), stable=True)
+    starts = torch.cumsum(count, 0) - count
+    within = torch.empty_like(key)
+    within[order] = torch.arange(key.shape[0], device=key.device) - starts[key[order]]
+    count = count.reshape(k, n_local)
+    before = torch.cumsum(count, 0) - count if offsets is None else offsets(count)
+    slot = before.reshape(-1)[key] + within
     keep = in_range & (slot < cap)
-    return flat_e, torch.clamp(slot, 0, cap - 1), keep, counts
+    return flat_e, torch.clamp(slot, 0, cap - 1), keep, count.sum(0)
 
 
 def dispatch(expert_idx: torch.Tensor, cfg: ArchConfig):
@@ -147,6 +174,8 @@ def moe_mlp(x: torch.Tensor, p, cfg: ArchConfig, *, use_kernel: bool = False):
     mesh_axis = ep_mesh()
     if mesh_axis is not None:
         return _moe_mlp_ep(x, p, cfg, *mesh_axis, use_kernel=use_kernel)
+    if isinstance(x, DTensor):
+        return _moe_mlp_mesh(x, p, cfg, use_kernel=use_kernel)
     e = cfg.moe
     b, s, d = x.shape
     t = b * s
@@ -163,26 +192,34 @@ def moe_mlp(x: torch.Tensor, p, cfg: ArchConfig, *, use_kernel: bool = False):
 
 def _expert_compute(xf: torch.Tensor, p, cfg: ArchConfig, n_local: int, e_offset: int,
                     gate_vals: torch.Tensor, expert_idx: torch.Tensor, capacity: int, *,
-                    use_kernel: bool = False):
+                    use_kernel: bool = False, offsets=None, on_slots=None):
     """Dispatch xf (T, d) to the ``n_local`` experts e_offset.. of ``p``'s
     expert leaves, run them and combine -> (y (T, d), assignments per local
     expert (dropped ones included), kept mask (k*T,)). An assignment to
     another rank's expert is out of range: it sorts after every local one,
-    takes no slot and adds nothing."""
+    takes no slot and adds nothing. A DTensor mesh's dispatch
+    (``_moe_mlp_mesh``) gives the slots' ``offsets`` (``_slots``) and
+    ``on_slots``, which takes the filled (n_local, capacity, d) buffers to
+    the experts and their outputs back, in place of the table's
+    constraints."""
+    pin = constrain if on_slots is None else (lambda t, name: t)
     k = cfg.moe.top_k
     t, d = xf.shape
     cd = xf.dtype
-    flat_e, slot, keep, counts = _slots(expert_idx, n_local, e_offset, capacity)
+    flat_e, slot, keep, counts = _slots(expert_idx, n_local, e_offset, capacity, offsets)
     buf_idx = flat_e * capacity + slot                                # (k*T,)
 
-    xk = constrain(xf.repeat(k, 1) * keep[:, None].to(cd), "tokens_flat")
+    xk = pin(xf.repeat(k, 1) * keep[:, None].to(cd), "tokens_flat")
     buffers = torch.zeros((n_local * capacity, d), dtype=cd, device=xf.device)
-    buffers = constrain(buffers.index_add_(0, buf_idx, xk), "experts_flat")
-    buffers = constrain(buffers.reshape(n_local, capacity, d), "experts")
-    out = constrain(_experts(buffers, p, use_kernel), "experts").reshape(-1, d)
-    out = constrain(out, "experts_flat")
+    buffers = pin(buffers.index_add_(0, buf_idx, xk), "experts_flat")
+    buffers = buffers.reshape(n_local, capacity, d)
+    if on_slots is None:
+        out = constrain(_experts(constrain(buffers, "experts"), p, use_kernel), "experts")
+    else:
+        out = on_slots(buffers)
+    out = pin(out.reshape(-1, d), "experts_flat")
     gates = keep.to(cd) * gate_vals.t().reshape(-1).to(cd)
-    y = constrain(out[buf_idx] * gates[:, None], "tokens_flat")
+    y = pin(out[buf_idx] * gates[:, None], "tokens_flat")
     return y.reshape(k, t, d).sum(0), counts, keep
 
 
@@ -223,6 +260,11 @@ def _moe_mlp_ep(x: torch.Tensor, p, cfg: ArchConfig, mesh, axis: str, *,
     the importance times the local counts, all-reduced with the dropped
     assignments in one fp32 sum. Differentiable (``_Replicated`` on the way
     in, ``_Summed`` on the way out)."""
+    if isinstance(x, DTensor):  # a DTensor mesh: the expert split of _moe_mlp_mesh
+        if axis != "model" or x.device_mesh != mesh:
+            raise ValueError(f"a DTensor MoE splits its experts over its own mesh's 'model' "
+                             f"axis; the table names {axis!r}")
+        return _moe_mlp_mesh(x, p, cfg, use_kernel=use_kernel)
     e = cfg.moe
     group, ep, rank = axis_group(mesh, axis)
     if e.n_experts % ep:
@@ -246,6 +288,96 @@ def _moe_mlp_ep(x: torch.Tensor, p, cfg: ArchConfig, mesh, axis: str, *,
     if "shared" in p:
         y = y + mlp(xf, p["shared"], "silu", use_kernel=use_kernel)
     return y.reshape(b, s, d), aux, sums[1].long()
+
+
+def _moe_mlp_mesh(x: DTensor, p, cfg: ArchConfig, *, use_kernel: bool = False):
+    """``moe_mlp`` of a DTensor, as the module's docstring describes: the
+    dispatch of ``_expert_compute`` on each rank's tokens and experts, with
+    the global slots' offsets and the buffers' trip through the mesh. The
+    local tensors carry the gradients' placements: each rank's share of a
+    sum over the mesh dims that split the work (the tokens' data axes, and
+    ``model`` where it splits the experts) wherever the tensor is
+    replicated along one: the router's and the input's (the gates, the aux
+    loss and the dispatch of this rank's tokens), the gathered expert
+    outputs' (each rank reads its tokens' rows) and the experts' where the
+    slots are split over the data axes (a capacity that the data axes do
+    not divide leaves every slot on every rank of them, and the output's
+    gradient is summed over them first). The dropped assignments are a
+    DTensor: this rank's experts', summed over ``model``."""
+    e, mesh = cfg.moe, x.device_mesh
+    k, n_e = e.top_k, e.n_experts
+    b, s, d = x.shape
+    t = b * s
+    names = mesh.mesh_dim_names
+    pl_x = fitted_placements((dp_spec(mesh), None, None), x)    # tokens over the data axes
+    x = x.redistribute(mesh, pl_x)
+    tok = [i for i, pl in enumerate(pl_x) if pl.is_shard()]      # mesh dims splitting tokens
+    m_dim = names.index("model")
+    ep = mesh.size(m_dim) if n_e % mesh.size(m_dim) == 0 else 1
+    n_local = n_e // ep
+    lo = (mesh.get_local_rank(m_dim) if ep > 1 else 0) * n_local
+    split = [i in tok or (i == m_dim and ep > 1) for i in range(mesh.ndim)]
+
+    def part(pls):  # a gradient that is each rank's share of a sum over the split dims
+        return tuple(Partial() if split[i] and pl.is_replicate() else pl
+                     for i, pl in enumerate(pls))
+
+    def over(local, pls):  # a DTensor of this rank's local tensor
+        return DTensor.from_local(local, mesh, tuple(pls), run_check=False)
+
+    xl = x.to_local(grad_placements=part(pl_x)).reshape(-1, d)   # (T_loc, d)
+    whole = (Replicate(),) * mesh.ndim
+    router = p["router"].redistribute(mesh, whole).to_local(grad_placements=part(whole))
+    _, probs, gate_vals, expert_idx = route(xl, router, cfg, use_kernel=use_kernel)
+
+    # the global slots: the (choice, expert) counts of every token-splitting rank
+    r = 0
+    for i in tok:  # this rank's block of tokens, in the mesh dims' order
+        r = r * mesh.size(i) + mesh.get_local_rank(i)
+    seen = {}
+
+    def global_offsets(count):  # (k, n_local) -> the assignments before each, globally
+        seen["all"] = over(count[None], (Shard(0) if i in tok else Replicate()
+                                         for i in range(mesh.ndim))).full_tensor()
+        per_choice = seen["all"].sum(0)                          # (k, n_local)
+        return (torch.cumsum(per_choice, 0) - per_choice) + seen["all"][:r].sum(0)
+
+    # each rank's buffers, reduce-scattered over the data axes along the
+    # capacity (each slot holds one token's row, so the sum is exact): each
+    # rank runs its experts on its share of the slots
+    cap = capacity(t, cfg)
+    n_tok = math.prod(mesh.size(i) for i in tok)
+    rows_split = n_tok > 1 and cap % n_tok == 0
+    whole_pl = tuple(Shard(0) if i == m_dim and ep > 1 else Replicate()
+                     for i in range(mesh.ndim))
+    rows_pl = tuple(Shard(1) if i in tok and rows_split else pl for i, pl in enumerate(whole_pl))
+    w = {n: gathered(p[n]) for n in ("w_up", "w_gate", "w_down")}
+    w = {n: t.to_local(grad_placements=part(t.placements) if rows_split else t.placements)
+         for n, t in w.items()}
+
+    def on_slots(buf):
+        buf = over(buf, (Partial() if i in tok else pl for i, pl in enumerate(whole_pl)))
+        out = over(_experts(buf.redistribute(mesh, rows_pl).to_local(), w, use_kernel), rows_pl)
+        return out.redistribute(mesh, whole_pl).to_local(grad_placements=part(whole_pl))
+
+    y, _, _ = _expert_compute(xl, w, cfg, n_local, lo, gate_vals, expert_idx, cap,
+                              use_kernel=use_kernel, offsets=global_offsets, on_slots=on_slots)
+    # the parts of this rank's experts, summed over model in fp32
+    y = over(y.float().reshape(x.to_local().shape),
+             (Partial() if i == m_dim and ep > 1 else pl for i, pl in enumerate(pl_x)))
+    y = y.redistribute(mesh, pl_x).to(x.dtype)
+
+    # aux: this rank's tokens' importance of its experts times their global counts
+    counts = seen["all"].sum((0, 1))                             # (n_local,), dropped included
+    share = torch.sum(probs[:, lo:lo + n_local].sum(0) * counts.float())
+    aux = over(share, (Partial() if split[i] else Replicate() for i in range(mesh.ndim)))
+    aux = n_e * aux.redistribute(mesh, whole) / (t * t * k)  # a DTensor, as the loss it joins
+    dropped = over(torch.clamp(counts - cap, min=0).sum(),
+                   (Partial() if i == m_dim and ep > 1 else Replicate()
+                    for i in range(mesh.ndim)))
+    if "shared" in p:
+        y = y + mlp(x, p["shared"], "silu", use_kernel=use_kernel)
+    return y, aux, dropped
 
 
 def init_block(generator: torch.Generator, cfg: ArchConfig, dtype=torch.float32, *,

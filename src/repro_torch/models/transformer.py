@@ -34,7 +34,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve as _device
 from repro_torch.kernels.flash_attention.ops import attn_fn as flash_attn_fn
 from repro_torch.tree import map_tree
-from repro_torch.parallel.act import constrain
+from repro_torch.parallel.act import constrain, pinned, summed
 from .layers import (dense_init, embed, embed_init, gqa_attention, gqa_decode_attention,
                      init_attention, init_mlp, init_rmsnorm, linear, mlp, rms_norm)
 
@@ -174,7 +174,7 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor, patch_embeds=None, *,
     x = constrain(embed(params["embed"], tokens, compute_dtype), "act")
     if patch_embeds is not None:
         proj = linear(patch_embeds.to(compute_dtype), params["projector"], use_kernel)
-        x = torch.cat([proj, x], dim=1)
+        x = constrain(torch.cat([proj, x], dim=1), "act")
     attn_fn = flash_attn_fn if use_kernel else None
     body = rematted(block_apply, remat)
     for bp in unstack(params["blocks"], cfg.n_layers):
@@ -188,12 +188,21 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     reference does. The one-hot is built by comparison, as
     ``jax.nn.one_hot`` is: a label outside [0, vocab) gives a zero row
     (its target logit counts as 0), where ``F.one_hot`` would raise.
-    logsumexp in fp32, the target contraction in the logits' dtype."""
+    logsumexp in fp32, the target contraction in the logits' dtype, as a
+    product and a sum over the vocab (one term is not zero, so any order of
+    summing gives the reference's value; no batched product, which on a
+    mesh would flatten the split batch and vocab dims together). On a mesh
+    the per-token losses are summed over the vocab's split and their
+    gradient pinned to their placements (``act.pinned``): DTensor would
+    hand the mean's replicated gradient to the (B, S, V) products and cut
+    it to the batch split one mesh dim at a time, a transient of the
+    batch over the first dim alone (on 2x16x16, half the global batch's
+    rows on every rank)."""
     lse = torch.logsumexp(logits.float(), dim=-1)
     vocab = torch.arange(logits.shape[-1], device=labels.device)
     onehot = (labels[..., None] == vocab).to(logits.dtype)
-    target = torch.einsum("bsv,bsv->bs", logits, onehot).float()
-    return (lse - target).mean()
+    target = (logits * onehot).sum(-1).float()
+    return pinned(summed(lse - target)).mean()
 
 
 def loss_fn(params, cfg: ArchConfig, tokens, labels, patch_embeds=None, **kw) -> torch.Tensor:

@@ -115,8 +115,9 @@ def apply(grads, state: OptState, params, cfg: AdamWConfig):
 
     for leaf in zip(leaves(params), leaves(grads), leaves(state.mu), leaves(state.nu)):
         p, g, m, v = (_shard(t) for t in leaf)
-        if not (p.is_contiguous() and g.is_contiguous()):
-            raise ValueError("adamw.apply updates contiguous params and grads in place")
+        g = g.contiguous()  # a transposed use (a tied head) leaves a transposed gradient
+        if not p.is_contiguous():
+            raise ValueError("adamw.apply updates contiguous params in place")
         for ps, gs, ms, vs in zip(_slices(p), _slices(g), _slices(m), _slices(v)):
             gs = gs.float().mul_(scale)
             ms.mul_(cfg.b1).add_(torch.mul(gs, 1 - cfg.b1))

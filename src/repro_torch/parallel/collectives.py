@@ -141,9 +141,13 @@ def _reduced(t: torch.Tensor, reduce_op: str, group) -> torch.Tensor:
 
 
 def _all_gather(x, group_size, group_name):
-    out = x.new_empty((x.shape[0] * group_size, *x.shape[1:]))
-    dist.all_gather_into_tensor(out, x.contiguous(), group=_group(group_name))
-    return out
+    # gathered on host copies and copied to the device once: gloo's own
+    # gather of CUDA tensors stages the whole result in a second device
+    # buffer (torch 2.11), twice the result's bytes at once
+    host = x.detach().to("cpu").contiguous()
+    out = host.new_empty((host.shape[0] * group_size, *host.shape[1:]))
+    dist.all_gather_into_tensor(out, host, group=_group(group_name))
+    return out.to(x.device)
 
 
 def _reduce_scatter(x, reduce_op, group_size, group_name):
@@ -171,7 +175,8 @@ def blocking_functional_collectives(device_type: str = "cuda") -> None:
     """Register blocking kernels for ``device_type`` under the functional
     collectives DTensor calls (all-gather, reduce-scatter, all-reduce, their
     coalesced forms, all-to-all): each is the ``torch.distributed`` call of
-    the same name on the op's group, complete when it returns, and
+    the same name on the op's group (the all-gather on host copies),
+    complete when it returns, and
     ``wait_tensor`` returns its input. The values are the collectives'
     own. Every group of the process takes these kernels, so call it where
     all of them are gloo groups (``launch.mesh.make_mesh`` does, for CUDA

@@ -214,7 +214,8 @@ def place(leaf: torch.Tensor, mesh, want: tuple) -> DTensor:
         return leaf if tuple(leaf.placements) == tuple(want) else leaf.redistribute(mesh, want)
     out = distribute_tensor(leaf, mesh, want, src_data_rank=None)
     local = out.to_local()
-    if local.untyped_storage().data_ptr() == leaf.untyped_storage().data_ptr():
+    # one storage, compared by identity: a fake tensor (the dry run's) has no data pointer
+    if local.untyped_storage()._cdata == leaf.untyped_storage()._cdata:
         out = DTensor.from_local(local.clone(), mesh, want, run_check=False,
                                  shape=out.shape, stride=out.stride())
     return out

@@ -15,7 +15,8 @@ DTensor is moved to its spec's placements). The step runs with the
 activation table of ``act.default_specs`` installed on that mesh, so the
 models' ``constrain`` calls pin their activations, and with
 ``implicit_replication`` on, so that the plain tensors a model builds from
-shapes (masks, RoPE tables) meet DTensors as replicated ones. Prefill and
+shapes (masks, RoPE tables) meet DTensors as replicated ones; a table the
+caller installed takes the default's place (``on_mesh``). Prefill and
 decode take the kernels on each rank's local shards; the train step takes
 the plain route, as on one card. ``init_params_on_mesh`` draws the
 one-card weights and keeps each rank's shards.
@@ -156,11 +157,15 @@ def constrained(grads, params):
 
 
 def on_mesh(mesh):
-    """The context a sharded step runs in: the activation table of
-    ``act.default_specs(mesh)`` with ``_mesh`` (so ``constrain`` pins), and
-    ``implicit_replication``."""
+    """The context a sharded step runs in: the activation table the caller
+    installed (``act.activation_specs``; a hill-climb variant's), else
+    ``act.default_specs(mesh)``, with ``_mesh`` (so ``constrain`` pins), and
+    ``implicit_replication``. The reference's ``build_step`` traces under
+    the ambient table the same way."""
+    table = act.installed_specs()
     stack = contextlib.ExitStack()
-    stack.enter_context(act.activation_specs(dict(act.default_specs(mesh), _mesh=mesh)))
+    stack.enter_context(act.activation_specs(
+        dict(act.default_specs(mesh) if table is None else table, _mesh=mesh)))
     stack.enter_context(implicit_replication())
     return stack
 

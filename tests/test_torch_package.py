@@ -128,3 +128,33 @@ def test_config_base_is_a_verbatim_copy(name):
     """base.py and every architecture's config module are the reference's, byte for byte."""
     assert (PORT / "configs" / name).read_text() == \
         (ROOT / "src" / "repro" / "configs" / name).read_text()
+
+
+@pytest.mark.parametrize("name", ["all_configs", "cell_enabled"])
+def test_registry_functions_are_verbatim_copies(name):
+    """The registry's ``all_configs`` and ``cell_enabled`` are the reference's,
+    line for line (comments included)."""
+    import inspect
+
+    import repro.configs as ref
+    import repro_torch.configs as port
+    assert inspect.getsource(getattr(port, name)) == inspect.getsource(getattr(ref, name))
+    assert name in port.__all__
+    assert list(port.all_configs()) == list(ref.all_configs())
+
+
+def _cells():
+    from repro.configs import ARCH_IDS, SHAPES
+    return [(a, s) for a in ARCH_IDS for s in SHAPES]
+
+
+@pytest.mark.parametrize("arch,shape", _cells())
+def test_cell_enabled_agrees_with_the_reference(arch, shape):
+    """The same (ok, why) for every (arch x shape) cell: long_500k runs only
+    for the sub-quadratic archs (SWA, SSM, hybrid)."""
+    import repro.configs as ref
+    import repro_torch.configs as port
+    ok, why = port.cell_enabled(port.get_config(arch), port.SHAPES[shape])
+    assert (ok, why) == ref.cell_enabled(ref.get_config(arch), ref.SHAPES[shape])
+    assert ok == (shape != "long_500k"
+                  or arch in ("h2o-danube-3-4b", "xlstm-350m", "zamba2-2.7b"))

@@ -133,6 +133,23 @@ def _ranks(rank, world, params_np, batches):
     out["param_placements"] = tuple(params["blocks"]["attn"]["wq"].placements)
     out["grad_free"] = all(not t.requires_grad for t in [params["embed"], opt.mu["embed"]])
 
+    # the collectives of a prefill, a decode tick and a train step, by kind
+    # (rank 0's, whose train step pins its gradients), for the dry run's counter
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.launch.hlo_stats import kind_counts
+
+    out["comm_counts"] = {}
+    calls = {"prefill": lambda p: prefill(p, tb(batches["prefill"])),
+             "decode": lambda p: decode(p, transformer.params_from_jax(batches["decode_cache"],
+                                                                       device="cpu"),
+                                        dec["tokens"], dec["pos"]),
+             "train": lambda p: train(p, adamw.init(p), tb(batches["train"]))}
+    for kind, call in calls.items():
+        with CommDebugMode() as comm:
+            call(transformer.params_from_jax(params_np, device="cpu"))
+        out["comm_counts"][kind] = kind_counts(comm.get_comm_counts())
+
     # the blocking functional collectives (what a CUDA mesh over gloo runs)
     # give the same prefill and train step
     from repro_torch.parallel.collectives import blocking_functional_collectives
@@ -279,6 +296,23 @@ def test_make_batch_equals_the_reference(arch, shape):
                 jax.tree.map(lambda t: tuple(t.shape), meta[k])
             continue
         assert tuple(meta[k].shape) == v.shape and meta[k].device.type == "meta"
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode", "train"])
+def test_dry_run_counts_the_collectives_of_the_real_run(runs, kind):
+    """The dry run's counter, on fake tensors over a fake (2, 2) process group,
+    counts by kind the collectives that ``CommDebugMode`` saw rank 0 make in
+    the real gloo run of the same step."""
+    from repro_torch.launch.dryrun import count_step, fake_world
+    from repro_torch.train.steps import StepOptions
+
+    ranks, _ = runs
+    shape = {"prefill": PREFILL, "decode": DECODE, "train": TRAIN}[kind]
+    with fake_world((2, 2), device_type="cpu") as mesh:
+        counter = count_step(get_config(ARCH).reduced(), shape, mesh,
+                             StepOptions(remat="full", constrain_grads=True))
+    got = counter.collective_stats().count_by_kind
+    assert got == ranks[0]["comm_counts"][kind] and sum(got.values()) > 0
 
 
 def test_blocking_functional_collectives_give_the_same_steps(runs):
