@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with a CUDA device and nvcc:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch`` (nvcc, sm_90a,
-one process per source, all started together) and then runs seventeen phases;
+one process per source, all started together) and then runs phases A-T;
 any failure raises and exits non-zero.
 
   (A) The conv kernel against its plain PyTorch version at every distinct
@@ -256,6 +256,21 @@ any failure raises and exits non-zero.
       skipped; FLOPs a rank x 256 against the unsharded step's, collective
       bytes by kind, GiB a device against the card's. (S3) two hill-climb
       variants. A pool of S_WORKERS processes; bounded at S_BOUND seconds.
+  (T) The paper's DSE campaign in the port (``repro_torch.dse.campaign``):
+      VGG-16 and VGG-19 at 224 x {ku115, zc706, vu9p, zcu102} x
+      precisions {16, 8}, 16 cells, the hyperband searcher at its default
+      config (screen 4096, survivors 16), rung 0 of every cell screened on
+      the card in one cross-cell call (``screen_device="cuda"``). Its
+      records equal, field for field but the search time, those of the
+      same campaign screening each cell in NumPy (``screen_device=None``);
+      a rerun on the card's store reuses all 16 cells with 0 evaluations;
+      ``python -m repro_torch.dse.campaign ... --device cuda`` in a
+      subprocess exits 0 with the in-process run's design for
+      VGG-16/KU115/16-bit; none of the five kernels launches. It prints
+      both walls (host clock, the model's caches emptied before each), the
+      prescreen's host wall and its screen's time on the card (CUDA
+      events) with their shares of the wall, cells/s, and each cell's best
+      GOP/s, DSP efficiency and RAV.
   Phases M-R print their walls, tokens/s and peak memory; each draws from
   a generator of its own.
 
@@ -288,6 +303,10 @@ and prints R's wall but neither summary line.
 
 runs phase S alone, with its gates but S1's tie to R1 (phase R did not
 run), and neither summary line.
+
+    python3 chip_smoke.py --t-only
+
+runs phase T alone, with its gates, and neither summary line.
 """
 from __future__ import annotations
 
@@ -3358,6 +3377,149 @@ def phase_s() -> dict:
     return {}
 
 
+# ---------------------------------------------------------------------------
+# Phase T: the paper's DSE campaign, hyperband's rung 0 screened on the card
+# ---------------------------------------------------------------------------
+
+T_NETS = ("vgg16", "vgg19")
+T_INPUTS = [(224, 224)]
+T_FPGAS = ("ku115", "zc706", "vu9p", "zcu102")
+T_PRECISIONS = (16, 8)
+T_CLI_CELL = ("vgg16", "ku115", 16)  # the cell the CLI subprocess is held to
+
+
+def t_without_time(records: list) -> list:
+    return [{k: v for k, v in r.items() if k != "search_time_s"} for r in records]
+
+
+def t_cold_caches() -> None:
+    """Empty the analytical model's process-wide caches (the packed layer
+    tables and the split/BRAM memos), so each campaign run starts cold."""
+    from repro_torch.core import batch_eval, layer_arrays
+    for fn in (batch_eval._split_pf, batch_eval._stage_bram, layer_arrays.pack_layers):
+        fn.cache_clear()
+
+
+def t_timed_prescreen(campaign) -> tuple:
+    """Wrap ``campaign.prescreen_cells`` (host wall) and the one
+    ``screen.screen_cells`` call inside it (CUDA events around it: the
+    tables and positions copied in, the screen, the fitnesses copied out);
+    returns the list the timings land in and the function that unwraps."""
+    seen, prescreen, screen_cells = [], campaign.prescreen_cells, screen.screen_cells
+
+    def timed_screen(*args, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = screen_cells(*args, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        seen[-1]["card_ms"] = start.elapsed_time(end)
+        return out
+
+    def timed_prescreen(*args, **kw):
+        seen.append({})
+        t0 = time.perf_counter()
+        out = prescreen(*args, **kw)
+        seen[-1]["host_ms"] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    campaign.prescreen_cells, screen.screen_cells = timed_prescreen, timed_screen
+
+    def unwrap():
+        campaign.prescreen_cells, screen.screen_cells = prescreen, screen_cells
+    return seen, unwrap
+
+
+def phase_t() -> dict:
+    """The port's DSE campaign at the hyperband searcher's default config
+    over 16 cells, rung 0 of every cell screened on the card in one call:
+    records equal to the run that screens each cell in NumPy (all but the
+    search time), a rerun on the card's store that reuses every cell, and
+    the CLI in a subprocess giving the in-process run's best design. No
+    kernel of the five launches on this path."""
+    from repro_torch.dse import campaign
+    from repro_torch.dse.store import is_ok
+
+    cells = campaign.expand_cells(T_NETS, T_INPUTS, T_FPGAS, T_PRECISIONS, [1])
+    check(len(cells) == 16, f"T: {len(cells)} cells, expected 16")
+    with tempfile.TemporaryDirectory(prefix="phase_t_") as tmp:
+        reset_counts()
+        t_cold_caches()
+        seen, unwrap = t_timed_prescreen(campaign)
+        try:
+            card = campaign.run_campaign(cells, f"{tmp}/card.jsonl", searcher="hyperband",
+                                         screen_device="cuda")
+            again = campaign.run_campaign(cells, f"{tmp}/card.jsonl", searcher="hyperband",
+                                          screen_device="cuda")
+            warm = campaign.prescreen_cells(cells, device="cuda")
+        finally:
+            unwrap()
+        launched = counts()
+        check(not any(launched.values()), f"T: kernel launches {launched}, expected none")
+        check(len(seen) == 2, f"T: {len(seen)} prescreens, expected 2 (the campaign's and "
+                              f"one warm call; the rerun screens nothing)")
+        check(len(warm) == 16 and all(len(v) == 4096 for v in warm.values()),
+              "T: the warm prescreen's fitnesses")
+        t_cold_caches()
+        host = campaign.run_campaign(cells, f"{tmp}/host.jsonl", searcher="hyperband",
+                                     screen_device=None)
+        check(len(card.records) == 16 and all(is_ok(r) for r in card.records),
+              f"T: {len(card.records)} records, {card.failed_cells} failed")
+        for r in card.records:
+            o = r["objectives"]
+            check(o["feasible"] and math.isfinite(o["gops"]) and o["gops"] > 0
+                  and 0 < o["dsp_eff"] <= 1, f"T {r['cell_key']}: objectives {o}")
+        if t_without_time(card.records) != t_without_time(host.records):
+            bad = next(a["cell_key"] for a, b in zip(card.records, host.records)
+                       if t_without_time([a]) != t_without_time([b]))
+            raise RuntimeError(f"T: the card-screened record of {bad} differs from the "
+                               f"NumPy-screened one")
+        check(card.new_evaluations == host.new_evaluations,
+              f"T: {card.new_evaluations} evaluations, NumPy-screened {host.new_evaluations}")
+        check((again.new_cells, again.reused_cells, again.new_evaluations) == (0, 16, 0),
+              f"T: rerun {again.new_cells} new, {again.reused_cells} reused, "
+              f"{again.new_evaluations} evaluations")
+
+        net, fpga, prec = T_CLI_CELL
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "repro_torch.dse.campaign", "--nets", net, "--fpgas", fpga,
+             "--precisions", str(prec), "--searcher", "hyperband", "--device", "cuda",
+             "--store", f"{tmp}/cli.jsonl", "-q"],
+            env=env, capture_output=True, text=True, timeout=300, cwd=ROOT)
+        cli_s = time.perf_counter() - t0
+        check(cli.returncode == 0, f"T: the CLI exited {cli.returncode}: {cli.stderr[-2000:]}")
+        (cli_rec,) = [json.loads(line) for line in Path(f"{tmp}/cli.jsonl").read_text().splitlines()]
+        mine = next(r for r in card.records if r["cell_key"] == cli_rec["cell_key"])
+        check((cli_rec["rav"], cli_rec["objectives"]) == (mine["rav"], mine["objectives"]),
+              f"T: the CLI's design {cli_rec['rav']} differs from the in-process "
+              f"{mine['rav']}")
+
+    wall, host_wall = card.wall_time_s, host.wall_time_s
+    first, again_ms = seen[0], seen[1]
+    print(f"T campaign {'x'.join(T_NETS)} at 224 x {','.join(T_FPGAS)} x precisions "
+          f"{T_PRECISIONS}: 16 cells, hyperband (screen 4096, survivors 16), "
+          f"{card.new_evaluations} evaluations; records equal to the NumPy-screened run's "
+          f"but the search time; rerun 16 reused, 0 evaluations; CLI exit 0 in "
+          f"{cli_s:.2f} s, its {net}/{fpga}/{prec}-bit design equal to the in-process one")
+    print(f"T wall {wall:.4f} s card-screened ({16 / wall:.4g} cells/s), {host_wall:.4f} s "
+          f"NumPy-screened ({16 / host_wall:.4g} cells/s; both from cold model caches, "
+          f"host clock); the campaign's prescreen "
+          f"{first['host_ms']:.3f} ms host wall ({first['host_ms'] / 1e3 / wall:.2%} of the "
+          f"wall), its screen {first['card_ms']:.3f} ms on the card (CUDA events, copies "
+          f"included; {first['card_ms'] / 1e3 / wall:.2%} of the wall); a second prescreen "
+          f"of the 16 cells {again_ms['host_ms']:.3f} ms host, {again_ms['card_ms']:.3f} ms "
+          f"on the card")
+    for r in card.records:
+        o, rav = r["objectives"], r["rav"]
+        print(f"T {r['cell_key']}: {o['gops']:.6g} GOP/s, DSP eff {o['dsp_eff']:.6g}, RAV "
+              f"sp={rav['sp']} b={rav['batch']} dsp={rav['dsp_frac']:.6g} "
+              f"bram={rav['bram_frac']:.6g} bw={rav['bw_frac']:.6g}; {r['evaluations']} "
+              f"evaluations, {r['search_time_s']} s")
+    return {}
+
+
 def matmul_floors(rows, hybrid_rows) -> None:
     """The redesigned matmul against torch.matmul in this run, bf16: the
     prefill sum of single calls at most 4x torch.matmul's, the decode tick's
@@ -3455,8 +3617,9 @@ def lm_entries(rows, launches, serving, hybrid_rows, hybrid_launches, hybrid_ser
 
 
 def main() -> int:
-    if sys.argv[1:] not in ([], ["--q-only"], ["--r-only"], ["--s-only"]):
-        print("usage: chip_smoke.py [--q-only | --r-only | --s-only]", file=sys.stderr)
+    if sys.argv[1:] not in ([], ["--q-only"], ["--r-only"], ["--s-only"], ["--t-only"]):
+        print("usage: chip_smoke.py [--q-only | --r-only | --s-only | --t-only]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs an NVIDIA GPU",
@@ -3498,6 +3661,9 @@ def main() -> int:
     if sys.argv[1:] == ["--s-only"]:
         phase_s()
         return 0
+    if sys.argv[1:] == ["--t-only"]:
+        phase_t()
+        return 0
     rows = phase_a(gen)
     launches = phase_b(gen)
     keep = {}  # phases C and M leave on the host what phase Q is held to
@@ -3524,7 +3690,7 @@ def main() -> int:
     zoo = {}
     for name, phase in (("M", lambda: phase_m(keep)), ("N", phase_n), ("O", phase_o),
                         ("P", phase_p), ("Q", lambda: phase_q(keep)), ("R", phase_r),
-                        ("S", phase_s)):
+                        ("S", phase_s), ("T", phase_t)):
         t0 = time.perf_counter()
         zoo.update(phase())
         torch.cuda.empty_cache()

@@ -2,9 +2,9 @@
 cells in one call on the card.
 
 The counterpart of ``repro/core/screen_jax.py``. ``cell_tables`` and
-``stack_cells`` are NumPy, as there; the tables of
-``repro/core/batch_eval.py::_screen_tables`` are computed here from the
-port's ``NetInfo``, only the columns the screen reads. ``screen_cells``
+``stack_cells`` are NumPy, as there: the tables are the port's own
+``batch_eval._screen_tables`` of ``pack_layers(net, dw, ww)``, the ones
+``batch_eval.screen_rav_batch`` reads. ``screen_cells``
 is ``screen_jax._screen_one`` broadcast over (cells, n) in float64/int64:
 the per-cell tables are gathered with ``torch.gather``, and the rounding
 (``torch.round``, half to even), the truncating ``.to(torch.int64)`` and
@@ -28,44 +28,25 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve
+from .batch_eval import _screen_tables
 from .hw_specs import FPGASpec, alpha_for
+from .layer_arrays import pack_layers
 from .netinfo import NetInfo
 
 
-def _screen_tables(net: NetInfo, ww: int) -> dict:
-    """``batch_eval._screen_tables`` of ``pack_layers(net, dw, ww)``: prefix
-    sums over the major layers, suffix sums over all layers, and the first
-    layer of the generic segment at each split point."""
-    layers, majors = net.layers, net.major_layers
-    n, n_l = len(majors), len(layers)
-    pipe_macs = np.zeros(n + 1, dtype=np.float64)
-    pipe_macs[1:] = np.cumsum(np.asarray([l.macs for l in majors], dtype=np.float64))
-    wsum = [0]
-    for l in majors:
-        wsum.append(wsum[-1] + l.weight_bytes(ww))
-    is_pool = np.array([l.kind == "pool" for l in layers])
-    macs = np.array([l.macs for l in layers], dtype=np.int64)
-    macs_np = np.where(is_pool, 0, macs).astype(np.float64)
-    tail_macs = np.zeros(n_l + 1, dtype=np.float64)
-    tail_macs[:-1] = np.cumsum(macs_np[::-1])[::-1]
-    weight_bytes = np.array([l.weight_bytes(ww) for l in layers], dtype=np.int64)
-    tail_w = np.zeros(n_l + 1, dtype=np.float64)
-    tail_w[:-1] = np.cumsum(weight_bytes[::-1].astype(np.float64))[::-1]
-    m_idx = net.major_indices
-    seg_start = np.array([m_idx[sp] if sp < n else n_l for sp in range(n + 1)],
-                         dtype=np.int64)
-    return {"pipe_macs": pipe_macs, "pipe_w": np.asarray(wsum, dtype=np.float64),
-            "seg_start": seg_start, "tail_macs": tail_macs, "tail_w": tail_w}
-
-
 def cell_tables(net: NetInfo, fpga: FPGASpec, dw: int = 16, ww: int = 16) -> dict:
-    """One cell's screening inputs: the prefix/suffix tables plus the
-    hardware scalars the screen closes over."""
-    majors = net.major_layers
+    """One cell's screening inputs: the NumPy reference's cached
+    prefix/suffix tables (:func:`repro_torch.core.batch_eval._screen_tables`,
+    shared, not recomputed) plus the hardware scalars the screen closes
+    over, as ``screen_jax.cell_tables``."""
+    packed = pack_layers(net, dw, ww)
+    t = _screen_tables(packed)
     return {
-        **_screen_tables(net, ww),
-        "n_major": len(majors), "n_layers": len(net.layers),
-        "ifm0": float(majors[0].ifm_bytes(dw) if majors else 0),
+        "pipe_macs": t["pipe_macs"], "pipe_w": t["pipe_w"],
+        "seg_start": t["seg_start"],
+        "tail_macs": t["tail_macs"], "tail_w": t["tail_w"],
+        "n_major": packed.n_major, "n_layers": packed.n_layers,
+        "ifm0": float(packed.ifm0),
         "alpha": alpha_for(min(dw, ww)),
         "freq": float(fpga.freq),
         "bw_total": float(fpga.bw_gbps * 1e9),
