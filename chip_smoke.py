@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with a CUDA device and nvcc:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch`` (nvcc, sm_90a,
-one process per source, all started together) and then runs phases A-T;
+one process per source, all started together) and then runs phases A-U;
 any failure raises and exits non-zero.
 
   (A) The conv kernel against its plain PyTorch version at every distinct
@@ -271,6 +271,34 @@ any failure raises and exits non-zero.
       prescreen's host wall and its screen's time on the card (CUDA
       events) with their shares of the wall, cells/s, and each cell's best
       GOP/s, DSP efficiency and RAV.
+  (U) The calibration loop, fed by the card's own kernel timings. (U1) The
+      five kernels in bf16, each against its plain version at 2e-2: the
+      conv (wgmma route) at VGG-16's conv3 (batch 8, C = K = 256, 56 x
+      56), StarCoder2-3B's products at prefill (M = 4 x 512) and at the
+      4-slot tick, its RMSNorm and flash attention at prefill, and the SSD
+      at Zamba2-2.7B's prefill shape; then each row's calls back to back
+      (b2b_ms) over copies of its operands that together exceed twice the
+      L2, the counts set to 0 just before and read just after. Each row
+      becomes a calibration row (``calib_row``): the term that bounds it
+      on ``hw_specs.H100`` (held equal to this script's peaks) predicts
+      its time on the compute or the bandwidth axis, the back-to-back time
+      of one call is the measurement, and no row may read above 105 % of
+      the spec's peak. The rows go to build/calib/h100_kernels.json in the
+      ``benchmarks/run.py --json`` shape. (U2) ``python -m
+      repro_torch.calib fit`` on them, in a subprocess, gives
+      build/calib/h100.json, equal to the in-process fit, and ``validate``
+      passes; the fitted h100 scales print beside the published digest's.
+      (U3) ``python -m repro_torch.dse.campaign --backend cuda`` over
+      StarCoder2-3B and Zamba2-2.7B x {train_4k, prefill_32k, decode_32k}
+      x {8, 16} H100s under that calibration: every record carries its
+      fingerprint, a rerun reuses every cell with 0 evaluations, and each
+      record's step time equals ``gpu_planner.evaluate_point`` on the
+      scaled spec; each cell's best calibrated and datasheet step time
+      print. (U4) ``python -m repro_torch.dse.report`` over that store
+      renders the calibration section with the card rows' provenance, and
+      ``python -m repro_torch.dse.placement --selftest`` exits 0. The
+      whole run also prints the calibrated roofline of StarCoder2-3B's
+      prefill at 4 x 512 on one H100 beside phase E's measured wall.
   Phases M-R print their walls, tokens/s and peak memory; each draws from
   a generator of its own.
 
@@ -283,8 +311,8 @@ StarCoder2 (hd 128), 3x on Zamba2 (hd 80), the bf16 RMSNorm of each LM's
 prefill, back to back, to at most 1.05x F.rms_norm's (the single-call and
 decode sums printed), and the bf16 SSD at Zamba2's prefill shape, back to
 back, to at most 10x its bytes bound. Its last two
-lines are the kernel summary (one JSON object; the conv, matmul, RMSNorm
-and flash entries carry the launches of phases M-R by path) and the result
+lines are the kernel summary (one JSON object; each entry carries the
+launches of phases M-R and U by path) and the result
 ``{"ok": true, "device": {...}}``. There is no CPU fallback: without a CUDA
 device it exits non-zero and prints no result.
 
@@ -307,6 +335,11 @@ run), and neither summary line.
     python3 chip_smoke.py --t-only
 
 runs phase T alone, with its gates, and neither summary line.
+
+    python3 chip_smoke.py --u-only
+
+runs phase U alone, with its gates but the prefill line (phase E did not
+run), and neither summary line.
 """
 from __future__ import annotations
 
@@ -334,7 +367,7 @@ from repro_torch.checkpoint import store  # noqa: E402
 from repro_torch.configs import ARCH_IDS, SHAPES, get_config  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
 from repro_torch.core import screen  # noqa: E402
-from repro_torch.core.hw_specs import FPGAS  # noqa: E402
+from repro_torch.core.hw_specs import FPGAS, H100  # noqa: E402
 from repro_torch.core.netinfo import TABLE1_NETS, _B, vgg16, vgg19  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, TokenPipeline  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -449,6 +482,15 @@ def l2_copies(b: torch.Tensor, reps: int = B2B_REPS) -> list:
     """Copies of b, enough that b2b_ms, cycling over them, reads each one from
     device memory as a decode tick reads each weight once."""
     return [b] + [b.clone() for _ in range(min(reps, -(-2 * L2_BYTES // b.nbytes)) - 1)]
+
+
+def cold_copies(args: tuple, reps: int = B2B_REPS) -> list:
+    """``args`` and copies of its tensors, enough that b2b_ms, cycling over
+    them, reads every operand from device memory and not from the 50 MB L2."""
+    nbytes = sum(t.nbytes for t in args if isinstance(t, torch.Tensor))
+    n = min(reps, -(-2 * L2_BYTES // nbytes))
+    return [args] + [tuple(t.clone() if isinstance(t, torch.Tensor) else t for t in args)
+                     for _ in range(n - 1)]
 
 
 def max_err_within(out, ref, tol: float) -> float:
@@ -1031,7 +1073,8 @@ def lm_summary(rows, per: str) -> dict:
 
 
 def phase_e(gen):
-    """Full-width StarCoder2-3B prefill; returns (params, cfg, launches per forward)."""
+    """Full-width StarCoder2-3B prefill; returns (params, cfg, launches per
+    forward, the median wall of a forward in ms)."""
     cfg = get_config(LM_ARCH)
     params = transformer.init_lm(cfg, generator=gen, device="cuda", dtype=torch.bfloat16)
     tokens = torch.randint(0, cfg.vocab, (PREFILL_BATCH, PREFILL_SEQ), generator=gen,
@@ -1067,7 +1110,7 @@ def phase_e(gen):
           f"{err:.3e}  launches {got}  wall {wall:.3f} ms (median of {len(walls)})  "
           f"{tokens_n / wall * 1e3:.1f} tokens/s")
     del logits, ref, tokens
-    return params, cfg, got
+    return params, cfg, got, wall
 
 
 def serving_requests(cfg) -> list:
@@ -1254,9 +1297,7 @@ def phase_g(gen) -> dict:
                         count=cfg.n_layers, per="prefill")
         # copies of the inputs, cycled, so that each call reads them from
         # device memory as each layer's call does
-        copies = l2_copies(args[0])
-        copies = [(xc, *(t.clone() for t in args[1:])) if i else args
-                  for i, xc in enumerate(copies)]
+        copies = cold_copies(args)
         row.update(route=route,
                    b2b_ms=b2b_ms(lambda i: ssd(*copies[i % len(copies)], chunk=sc.chunk)))
         print_row("G", "ssd", dtype, "B={} S={} H={} P={} N={} chunk={}".format(
@@ -3520,6 +3561,269 @@ def phase_t() -> dict:
     return {}
 
 
+# ---------------------------------------------------------------------------
+# Phase U: the calibration loop, fed by the card's own kernel timings
+# ---------------------------------------------------------------------------
+
+CALIB_DIR = ROOT / "build" / "calib"
+U_CONV = (BATCH, 256, 56, 56, 256, 3)  # VGG-16's conv3 at 224 x 224, batch 8
+U_OVER_PEAK = 1.05  # no row may read above this times the spec's peak
+U_ARCHS = (LM_ARCH, HYBRID_ARCH)
+U_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+U_GPUS = (8, 16)
+U_PATH = "calibration_rows"
+U_SEED = 22
+
+
+def calib_term(nbytes: float, ops: float) -> tuple[str, float]:
+    """The term that bounds a call on the H100 spec, as (axis, predicted s):
+    operations over ``peak_flops`` (compute) or bytes over ``hbm_bw``
+    (bandwidth)."""
+    t_ops, t_bytes = ops / H100.peak_flops, nbytes / H100.hbm_bw
+    return ("compute", t_ops) if t_ops >= t_bytes else ("bandwidth", t_bytes)
+
+
+def calib_row(name: str, nbytes: float, ops: float, meas_s: float) -> dict:
+    """One kernel timing as a row of ``benchmarks/run.py --json``'s shape,
+    which ``repro_torch.calib.bench_measurements`` reads: ``calib_term``
+    predicts the call's time and ``meas_s`` is the time the card took."""
+    axis, pred = calib_term(nbytes, ops)
+    return {"name": name, "us_per_call": meas_s * 1e6,
+            "derived": f"calib_part={H100.name};calib_axis={axis};"
+                       f"calib_pred_s={pred!r};calib_meas_s={meas_s!r}"}
+
+
+def calib_bench(rows: list) -> dict:
+    return {"benchmarks": {"h100_kernels": rows}}
+
+
+def u_cases(gen) -> list:
+    """(kernel name, row name, kernel, plain, library, args, bytes, operations)
+    of every U1 row, bf16: the conv at VGG-16's conv3, StarCoder2-3B's
+    products at prefill and at the 4-slot tick, its RMSNorm and flash
+    attention at prefill, and the SSD at Zamba2-2.7B's prefill shape."""
+    dt, el = torch.bfloat16, 2
+    n, c, h, w, k, r = U_CONV
+    x, wt = conv_inputs(n, c, h, w, k, r, dt, gen)
+    cases = [("conv2d", f"conv2d.vgg16.N{n}.C{c}.H{h}.W{w}.K{k}.R{r}", conv2d, conv2d_ref,
+              lambda x, wt: F.conv2d(x, wt, padding=r // 2), (x, wt),
+              el * (n * c * h * w + k * c * r * r + n * k * h * w), 2 * n * k * c * h * w * r * r)]
+    cfg = get_config(LM_ARCH)
+    for per, m in (("prefill", PREFILL_BATCH * PREFILL_SEQ), ("tick", SLOTS)):
+        for kk, nn in lm_products(cfg):
+            a, b = randn((m, kk), dt, gen), randn((kk, nn), dt, gen, kk ** -0.5)
+            cases.append(("matmul", f"matmul.{LM_ARCH}.{per}.M{m}.K{kk}.N{nn}", matmul,
+                          matmul_ref, torch.matmul, (a, b), el * (m * kk + kk * nn + m * nn),
+                          2 * m * kk * nn))
+    m, d = PREFILL_BATCH * PREFILL_SEQ, cfg.d_model
+    cases.append(("rmsnorm", f"rmsnorm.{LM_ARCH}.prefill.rows{m}.D{d}", rmsnorm, rmsnorm_ref,
+                  lambda x, sc: F.rms_norm(x, (d,), sc, 1e-6),
+                  (randn((m, d), dt, gen), randn((d,), dt, gen)), el * (2 * m * d + d), 4 * m * d))
+    b, s, hh, kv, hd = PREFILL_BATCH, PREFILL_SEQ, cfg.n_heads, cfg.n_kv, cfg.head_dim
+    q = randn((b, s, hh, hd), dt, gen)
+    kt, vt = randn((b, s, kv, hd), dt, gen), randn((b, s, kv, hd), dt, gen)
+    cases.append(("flash_attention", f"flash_attention.{LM_ARCH}.prefill.B{b}.S{s}.H{hh}.KV{kv}"
+                  f".hd{hd}.causal", lambda q, k, v: flash_attention(q, k, v, causal=True),
+                  lambda q, k, v: attention_ref(q, k, v, causal=True),
+                  lambda q, k, v: F.scaled_dot_product_attention(
+                      q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+                      enable_gqa=True),
+                  (q, kt, vt), el * (2 * q.numel() + kt.numel() + vt.numel()),
+                  4 * b * hh * s * s * hd / 2))
+    hcfg = get_config(HYBRID_ARCH)
+    _, _, n_h = hybrid_dims(hcfg)
+    sc = hcfg.ssm
+    shape = (PREFILL_BATCH, PREFILL_SEQ, n_h, sc.head_dim, sc.state_dim)
+    cases.append(("ssd", "ssd.{}.prefill.B{}.S{}.H{}.P{}.N{}.chunk{}".format(
+                      HYBRID_ARCH, *shape, sc.chunk),
+                  lambda *a: ssd(*a, chunk=sc.chunk), lambda *a: ssd_ref(*a, chunk=sc.chunk),
+                  None, ssd_inputs(*shape, dt, gen), *ssd_work(*shape, sc.chunk, dt)))
+    return cases
+
+
+def u_kernel_rows(gen) -> tuple[list, dict]:
+    """U1: each kernel against its plain version, then every row's calls back
+    to back over cold copies of its operands, the counts set to 0 just before
+    and read just after; returns the calibration rows and the launches."""
+    check(H100.peak_flops == PEAK_FLOPS[torch.bfloat16] and H100.hbm_bw == HBM_BYTES_PER_S,
+          f"U: hw_specs.H100 ({H100.peak_flops}, {H100.hbm_bw}) and this script's peaks "
+          f"({PEAK_FLOPS[torch.bfloat16]}, {HBM_BYTES_PER_S}) differ")
+    cases = u_cases(gen)
+    timed = []
+    for _, _, kernel, plain, library, args, nbytes, ops in cases:
+        row = timed_row(lambda: kernel(*args), lambda: plain(*args),
+                        None if library is None else (lambda: library(*args)),
+                        nbytes, ops, torch.bfloat16)
+        timed.append((row, cold_copies(args)))
+    reset_counts()
+    conv2d.launches, conv2d.launches_by_route = 0, dict.fromkeys(conv2d.launches_by_route, 0)
+    for (_, _, kernel, *_), (row, copies) in zip(cases, timed):
+        row["b2b_ms"] = b2b_ms(lambda i: kernel(*copies[i % len(copies)]))
+    got = {"conv2d": conv2d.launches, **counts()}
+    per = B2B_REPS + 3  # b2b_ms's warm-up calls and its timed ones
+    want = {name: per * sum(c[0] == name for c in cases) for name in got}
+    check(got == want, f"U: launches {got}, expected {want}")
+    check(conv2d.launches_by_route["wgmma"] == want["conv2d"],
+          f"U: conv routes {conv2d.launches_by_route}, expected all on wgmma")
+    rows = []
+    for (_, row_name, *_, nbytes, ops), (row, copies) in zip(cases, timed):
+        meas = row["b2b_ms"] / 1e3
+        rows.append(calib_row(row_name, nbytes, ops, meas))
+        axis, pred = calib_term(nbytes, ops)
+        lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
+        print(f"U1 bfloat16 {row_name}: max_abs_err {row['max_abs_err']:.3e}  kernel "
+              f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  library {lib}  back to "
+              f"back {row['b2b_ms']:.4f} ms over {len(copies)} cold copies; "
+              f"{axis} axis: predicted {pred:.4e} s, measured {meas:.4e} s, "
+              f"{pred / meas:.2%} of the H100 spec's peak")
+        check(meas >= pred / U_OVER_PEAK,
+              f"U: {row_name} reads {pred / meas:.2%} of the spec's peak (at most "
+              f"{U_OVER_PEAK:.0%}): its operands did not come from device memory")
+    paths = {name: {"launches": n} for name, n in got.items()}
+    paths["conv2d"]["launches_by_route"] = dict(conv2d.launches_by_route)
+    return rows, paths
+
+
+def u_run(*args, timeout: int = 300) -> subprocess.CompletedProcess:
+    """``python -m <args>`` from the checkout's root; fails the run unless it exits 0."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-m", *map(str, args)], env=env, capture_output=True,
+                       text=True, timeout=timeout, cwd=ROOT)
+    check(r.returncode == 0, f"U: python -m {' '.join(map(str, args[:2]))} exited "
+                             f"{r.returncode}: {r.stdout[-1500:]} {r.stderr[-2000:]}")
+    return r
+
+
+def u_fit(bench_path: Path, cal_path: Path):
+    """U2: the calib CLI's fit of the card's rows, equal to the in-process
+    fit and valid; prints the scales beside the published digest's."""
+    from repro_torch.calib import (Calibration, bench_measurements, fit_corrections,
+                                   published_measurements)
+    u_run("repro_torch.calib", "fit", "--bench", bench_path, "--out", cal_path)
+    cal = Calibration.load(cal_path)
+    mine = fit_corrections(bench_measurements(json.loads(bench_path.read_text())))
+    check(cal.fingerprint() == mine.fingerprint() and cal.as_dict() == mine.as_dict(),
+          f"U: the CLI's calibration {cal.as_dict()} differs from the in-process fit "
+          f"{mine.as_dict()}")
+    u_run("repro_torch.calib", "validate", cal_path, "--bench", bench_path)
+    c, pub = cal.correction(H100.name), fit_corrections(published_measurements()).correction(
+        H100.name)
+    print(f"U2 fit of {c.n_compute} compute and {c.n_bandwidth} bandwidth rows "
+          f"(fingerprint {cal.fingerprint()}): h100 compute x{c.compute_scale:.4f} "
+          f"(published digest x{pub.compute_scale:.2f}), bandwidth x{c.bw_scale:.4f} "
+          f"(published x{pub.bw_scale:.2f}); error raw {c.raw_err_pct:.2f} %, calibrated "
+          f"{c.cal_err_pct:.2f} %; validate exit 0")
+    return cal
+
+
+def u_campaign(cal, cal_path: Path, tmp: str) -> dict:
+    """U3: the cuda campaign under the card's calibration in a subprocess:
+    every record stamped with its fingerprint, a rerun that reuses every
+    cell, and each record's step time equal to evaluate_point on the scaled
+    spec; prints the calibrated and the datasheet best step time a cell."""
+    from repro_torch.configs import SHAPES as ALL_SHAPES
+    from repro_torch.core import gpu_planner
+    from repro_torch.core.hw_specs import scaled_spec
+    from repro_torch.dse import campaign
+    from repro_torch.dse.backends import get_backend
+
+    store = Path(tmp) / "cuda.jsonl"
+    args = ["repro_torch.dse.campaign", "--backend", "cuda", "--archs", ",".join(U_ARCHS),
+            "--shapes", ",".join(U_SHAPES), "--gpus", ",".join(map(str, U_GPUS)),
+            "--gpu-types", H100.name, "--calibration", cal_path, "--store", store, "-q"]
+    u_run(*args)
+    recs = [json.loads(line) for line in store.read_text().splitlines()]
+    fp, c = cal.fingerprint(), cal.correction(H100.name)
+    check(recs and all(r["search"].get("calibration") == fp
+                       and r["calibration"]["fingerprint"] == fp for r in recs),
+          f"U: records without the calibration's fingerprint {fp}")
+    again = u_run(*args)
+    check(f"(0 new, {len(recs)} reused; 0 new evaluations" in again.stdout,
+          f"U: the rerun did not reuse all {len(recs)} cells: {again.stdout[-800:]}")
+    spec = scaled_spec(H100, c.compute_scale, c.bw_scale)
+    for r in recs:
+        cell, plan = r["cell"], r["plan"]
+        p = gpu_planner.evaluate_point(get_config(cell["arch"]), ALL_SHAPES[cell["shape"]],
+                                       cell["gpus"], plan["dp"], plan["tp"], cell["remat"],
+                                       cell["microbatches"], spec)
+        check(r["objectives"]["step_time_s"] == p.predicted_step_s,
+              f"U: {r['cell_key']} step {r['objectives']['step_time_s']!r}, evaluate_point "
+              f"on the scaled spec {p.predicted_step_s!r}")
+    cells = get_backend("cuda").expand_cells(
+        archs=U_ARCHS, shapes=U_SHAPES, gpus=U_GPUS, gpu_types=(H100.name,))
+    sheet = {r["cell_key"]: r for r in campaign.run_campaign(
+        cells, str(Path(tmp) / "datasheet.jsonl"), backend="cuda").records}
+    check(sorted(sheet) == sorted(r["cell_key"] for r in recs),
+          "U: the datasheet campaign's cells differ from the calibrated one's")
+    print(f"U3 cuda campaign {','.join(U_ARCHS)} x {','.join(U_SHAPES)} x {U_GPUS} h100: "
+          f"{len(recs)} cells, every record stamped {fp}, rerun {len(recs)} reused with 0 "
+          f"evaluations, every step time equal to evaluate_point on the scaled spec")
+    best = {}
+    for r in recs:
+        key = (r["cell"]["arch"], r["cell"]["shape"], r["cell"]["gpus"])
+        if key not in best or r["objectives"]["step_time_s"] < best[key][0]["objectives"][
+                "step_time_s"]:
+            best[key] = (r, sheet[r["cell_key"]])
+    for (arch, shape, gpus), (r, s) in sorted(best.items()):
+        ro, so, p = r["objectives"], s["objectives"], r["plan"]
+        print(f"U3 {arch}/{shape} on {gpus} h100, best cell {r['cell_key']}: calibrated "
+              f"step {ro['step_time_s']:.6g} s (dp{p['dp']}xtp{p['tp']}, {p['bound']}); "
+              f"datasheet {so['step_time_s']:.6g} s (dp{s['plan']['dp']}xtp"
+              f"{s['plan']['tp']}, {s['plan']['bound']}); x{ro['step_time_s'] / so['step_time_s']:.4f}")
+    return {"store": store, "cells": len(recs)}
+
+
+def u_report(store: Path, cal_path: Path, bench_path: Path, rows: list, tmp: str) -> None:
+    """U4: the report over U3's store renders with the calibration section
+    and the card rows' provenance; placement's selftest passes."""
+    out = Path(tmp) / "report.md"
+    u_run("repro_torch.dse.report", store, "--calibration", cal_path, "--bench", bench_path,
+          "--out", out)
+    md = out.read_text()
+    check("## Calibration (predicted vs measured)" in md,
+          "U: the report has no calibration section")
+    missing = [r["name"] for r in rows if f"benchmarks/run.py:{r['name']}" not in md]
+    check(not missing, f"U: the report's calibration section lacks the provenance of {missing}")
+    u_run("repro_torch.dse.placement", "--selftest")
+    print(f"U4 report {len(md)} chars with the calibration section and the provenance of "
+          f"all {len(rows)} card rows; placement --selftest exit 0")
+
+
+def phase_u(prefill_ms: float | None = None) -> dict:
+    """The calibration loop on the card: U1 the five kernels timed in bf16
+    into calibration rows (build/calib/h100_kernels.json), U2 the calib
+    CLI's fit of them (build/calib/h100.json), U3 the cuda campaign under
+    that fit, U4 the report. ``prefill_ms`` (phase E's StarCoder2-3B prefill
+    wall) adds the calibrated roofline of that prefill beside it."""
+    gen = torch.Generator(device="cuda").manual_seed(U_SEED)
+    rows, launches = u_kernel_rows(gen)
+    torch.cuda.empty_cache()
+    CALIB_DIR.mkdir(parents=True, exist_ok=True)
+    bench_path, cal_path = CALIB_DIR / "h100_kernels.json", CALIB_DIR / "h100.json"
+    bench_path.write_text(json.dumps(calib_bench(rows), indent=1))
+    cal = u_fit(bench_path, cal_path)
+    with tempfile.TemporaryDirectory(prefix="phase_u_") as tmp:
+        done = u_campaign(cal, cal_path, tmp)
+        u_report(done["store"], cal_path, bench_path, rows, tmp)
+    if prefill_ms is not None:
+        from repro_torch.core import gpu_model
+        from repro_torch.core.hw_specs import scaled_spec
+        from repro_torch.core.tpu_model import MeshDesc
+        c = cal.correction(H100.name)
+        shape = ShapeSpec("smoke_prefill", "prefill", PREFILL_SEQ, PREFILL_BATCH)
+        cfg, mesh = get_config(LM_ARCH), MeshDesc(1, 1, 1)
+        for label, spec in (("calibrated", scaled_spec(H100, c.compute_scale, c.bw_scale)),
+                            ("datasheet", H100)):
+            rl = gpu_model.analytic_roofline(cfg, shape, mesh, spec)
+            print(f"U {label} gpu_model.analytic_roofline {LM_ARCH} prefill "
+                  f"B={PREFILL_BATCH} S={PREFILL_SEQ} on one h100: step "
+                  f"{rl.step_time * 1e3:.4f} ms ({rl.bound}; compute {rl.t_compute * 1e3:.4f}, "
+                  f"memory {rl.t_memory * 1e3:.4f}, collective {rl.t_collective * 1e3:.4f} ms) "
+                  f"against phase E's measured "
+                  f"{prefill_ms:.4f} ms (x{prefill_ms / (rl.step_time * 1e3):.3f})")
+    return {U_PATH: launches}
+
+
 def matmul_floors(rows, hybrid_rows) -> None:
     """The redesigned matmul against torch.matmul in this run, bf16: the
     prefill sum of single calls at most 4x torch.matmul's, the decode tick's
@@ -3617,8 +3921,9 @@ def lm_entries(rows, launches, serving, hybrid_rows, hybrid_launches, hybrid_ser
 
 
 def main() -> int:
-    if sys.argv[1:] not in ([], ["--q-only"], ["--r-only"], ["--s-only"], ["--t-only"]):
-        print("usage: chip_smoke.py [--q-only | --r-only | --s-only | --t-only]",
+    if sys.argv[1:] not in ([], ["--q-only"], ["--r-only"], ["--s-only"], ["--t-only"],
+                            ["--u-only"]):
+        print("usage: chip_smoke.py [--q-only | --r-only | --s-only | --t-only | --u-only]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -3664,6 +3969,9 @@ def main() -> int:
     if sys.argv[1:] == ["--t-only"]:
         phase_t()
         return 0
+    if sys.argv[1:] == ["--u-only"]:
+        phase_u()
+        return 0
     rows = phase_a(gen)
     launches = phase_b(gen)
     keep = {}  # phases C and M leave on the host what phase Q is held to
@@ -3671,7 +3979,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     lm_rows = phase_d(gen)
     torch.cuda.empty_cache()
-    params, cfg, prefill_launches = phase_e(gen)
+    params, cfg, prefill_launches, prefill_ms = phase_e(gen)
     serving = phase_f(params, cfg)
     del params
     torch.cuda.empty_cache()
@@ -3690,7 +3998,7 @@ def main() -> int:
     zoo = {}
     for name, phase in (("M", lambda: phase_m(keep)), ("N", phase_n), ("O", phase_o),
                         ("P", phase_p), ("Q", lambda: phase_q(keep)), ("R", phase_r),
-                        ("S", phase_s), ("T", phase_t)):
+                        ("S", phase_s), ("T", phase_t), ("U", lambda: phase_u(prefill_ms))):
         t0 = time.perf_counter()
         zoo.update(phase())
         torch.cuda.empty_cache()
@@ -3707,7 +4015,7 @@ def main() -> int:
                           **vgg_forward_summary(rows[torch.bfloat16])}}
     entries = lm_entries(lm_rows, prefill_launches, serving, hybrid_rows, hybrid_launches,
                          hybrid_serving)
-    for e in [entry, *entries]:  # the launches of phases M-Q, path by path, on their kernels
+    for e in [entry, *entries]:  # the launches of phases M-R and U, path by path
         paths = {path: by[e["name"]] for path, by in zoo.items()
                  if by.get(e["name"], {}).get("launches")}
         if paths:

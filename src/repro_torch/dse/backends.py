@@ -1,38 +1,77 @@
 """Campaign backends: one accelerator family == one backend.
 
-The port's copy of ``repro/dse/backends.py``, cut to the backend this
-slice ports. A :class:`Backend` bundles everything
-:func:`repro_torch.dse.campaign.run_campaign` needs to sweep one family:
-an objective schema, cell expansion, per-cell evaluation, a resume-match
-search config, and presentation/CLI hooks. The code that is here is the
-reference's, line for line.
+DNNExplorer's claim is a *dynamic* design space that adapts to "different
+combinations of DNN workloads and targeted FPGAs"; this module widens
+"targeted FPGAs" to *targeted device families*. A :class:`Backend` bundles
+everything :func:`repro.dse.campaign.run_campaign` needs to sweep one
+family:
+
+* an **objective schema** (:class:`repro.dse.objectives.ObjectiveSpec`
+  tuple + default scalarization weights) — Pareto dominance, crowding
+  diversity, ranking, and reports all derive from it generically;
+* **cell expansion** — the cross product of that family's campaign axes
+  into picklable cell dataclasses with stable ``.key`` strings;
+* **cell evaluation** — ``run_cell(cell) -> store record``, the unit the
+  process pool fans out and the JSONL store memoizes;
+* a **search config** dict stored per record and compared on resume, so a
+  store never silently serves results found under different settings;
+* presentation/CLI hooks (table rows, progress headlines, axis flags).
+
+Three backends ship:
 
 ``fpga``
-    The paper's flow: cells are (net x input x FPGA x precision x batch
-    cap), each evaluated by a full :func:`repro_torch.core.explore`;
-    records carry no ``backend`` field, so the reference's stores resume
-    unchanged in the port and the port's in the reference.
+    The paper's flow, byte-compatible with PR-1 stores: cells are
+    (net x input x FPGA x precision x batch cap), each evaluated by a full
+    PSO :func:`repro.core.explore`; records carry no ``backend`` field so
+    existing stores resume unchanged.
 
-The ``tpu`` and ``cuda`` backends need the TPU and GPU planners
-(``tpu_model``, ``tpu_planner``, ``gpu_model``, ``gpu_planner``), which are
-not ported yet (``ROADMAP.md``, queue 1). :func:`get_backend` refuses them
-by name, with that message, instead of running something else.
+``tpu``
+    The beyond-paper retarget: cells are (arch x shape x chip count x
+    remat x microbatches), each evaluated by enumerating the power-of-two
+    (dp, tp) factorizations of the chip count through
+    :func:`repro.core.tpu_planner.evaluate_point` and keeping the best
+    mapping under the cell's scalarization. Objectives: step time, MFU,
+    per-chip HBM (with the HBM-fit feasibility gate), chips used.
+
+``cuda``
+    The same retarget over the GPU roofline
+    (:mod:`repro.core.gpu_model` / :mod:`repro.core.gpu_planner`): cells
+    add a GPU-part axis (a100-40g / a100-80g / h100) on top of the TPU
+    backend's workload axes, and the (dp, tp) search inside each cell is
+    identical in shape. Objectives mirror the TPU vector plus board
+    watts (GPU parts differ in TDP at the same count, so power is a real
+    trade-off axis within the family).
+
+Every backend can additionally express any of its records in the
+*normalized* cross-backend schema
+(:data:`repro.dse.objectives.NORMALIZED_OBJECTIVES` — delivered TFLOP/s,
+per watt, per dollar-proxy, per peak TFLOP) via :meth:`Backend.normalized`
+— computed from stored objectives at read time, so pre-existing stores
+compare across device families without re-running anything.
 """
 from __future__ import annotations
 
 import abc
+import argparse
+import dataclasses
 import os
 import time
 from typing import Mapping, Sequence
 
-from repro_torch.core.hw_specs import FPGAS, alpha_for, pod_cost
+from repro_torch.configs import ARCH_IDS, SHAPES, cell_enabled, get_config
+from repro_torch.core import gpu_planner
+from repro_torch.core.explorer import TRACE_SCHEMA_VERSION
+from repro_torch.core.hw_specs import FPGAS, GPUS, TPU_V5E, alpha_for, pod_cost
 from repro_torch.core.netinfo import TABLE1_NETS
+from repro_torch.core.tpu_planner import evaluate_point, factorizations
 
 from .objectives import (DEFAULT_WEIGHTS, OBJECTIVES, ObjectiveSpec,
                          canonical_vector, normalized_throughput,
                          scalarize_values)
+from .store import SCHEMA_VERSION
 
 #: Kept as a local literal (matches :data:`repro.testing.faults.ENV_VAR`)
+#: so the disabled-harness hot path never imports repro.testing.
 _FAULTS_ENV = "REPRO_FAULTS"
 
 
@@ -360,6 +399,50 @@ class FPGABackend(Backend):
             batch_caps=[int(b) for b in _csv(args.batch_caps)])
 
 
+# ---------------------------------------------------------------------------
+# shared workload axes (tpu + cuda both sweep arch x shape x remat x mb)
+# ---------------------------------------------------------------------------
+
+
+def _add_once(group, *args, **kw) -> None:
+    try:
+        group.add_argument(*args, **kw)
+    except argparse.ArgumentError:
+        pass  # a sibling backend already registered this flag
+
+
+def add_workload_arguments(ap) -> None:
+    """Register the workload axes the TPU and CUDA backends share
+    (``--archs/--shapes/--remats/--microbatches``). One CLI registers
+    every backend's flags, so double registration must be a no-op."""
+    g = ap.add_argument_group("workload axes (tpu & cuda backends)")
+    _add_once(g, "--archs", default="starcoder2-3b",
+              help="comma list from: " + ",".join(ARCH_IDS))
+    _add_once(g, "--shapes", default="train_4k,decode_32k",
+              help="comma list from: " + ",".join(SHAPES))
+    _add_once(g, "--remats", default="full,dots,none",
+              help="comma list of remat policies (train shapes)")
+    _add_once(g, "--microbatches", default="1,2,4",
+              help="comma list of microbatch counts (train shapes)")
+
+
+#: Device-count budgets swept when placement must fill store coverage for
+#: a workload (the tpu/cuda ``coverage_cells`` default axis).
+PLACEMENT_COUNTS: tuple[int, ...] = (8, 16, 32)
+
+
+def enumeration_trace(evaluated: int) -> dict:
+    """Per-cell ``trace`` dict for an exhaustively-enumerated search
+    (tpu/cuda): the whole mapping space is always visited, so the stop
+    reason is ``"exhaustive"`` — such cells are never iteration-capped
+    and never "still improving". Shares the schema of the PSO trace
+    (:meth:`repro.core.explorer.ExplorationResult.convergence_trace`),
+    so health reports render both uniformly."""
+    return {"schema": TRACE_SCHEMA_VERSION, "engine": "enumeration",
+            "stop_reason": "exhaustive", "iterations": evaluated,
+            "evaluations": evaluated, "cache_hits": 0}
+
+
 def stamp_calibration(cfg: dict, calibration) -> dict:
     """Add a non-identity calibration's fingerprint to a search-config
     dict (the resume-match key). Identity / ``None`` add nothing, so
@@ -370,32 +453,518 @@ def stamp_calibration(cfg: dict, calibration) -> dict:
     return cfg
 
 
+def _arch_shape(workload_key: str) -> tuple[str, str] | None:
+    """``arch/shape`` workload key -> (arch, shape), or None if the key
+    isn't in the tpu/cuda key space (both families share it by design)."""
+    arch, sep, shape = workload_key.partition("/")
+    if not sep or arch not in ARCH_IDS or shape not in SHAPES:
+        return None
+    return arch, shape
+
+
+def workload_families(workload_key: str) -> tuple[str, ...]:
+    """Which device families can host a workload key: ``arch/shape`` keys
+    are shared by the tpu AND cuda backends (that overlap is what lets
+    :mod:`repro.dse.placement` choose a family per workload); ``net@size``
+    keys belong to the fpga backend. Unknown keys return ()."""
+    if _arch_shape(workload_key) is not None:
+        return ("tpu", "cuda")
+    from .campaign import RESIZABLE_NETS
+    net = workload_key.partition("@")[0]
+    if net in RESIZABLE_NETS or net in TABLE1_NETS:
+        return ("fpga",)
+    return ()
+
+
+# ---------------------------------------------------------------------------
+# tpu — the beyond-paper retarget over repro.core.tpu_planner
+# ---------------------------------------------------------------------------
+
+#: TPU campaign objective vector, in report order. ``hbm_gib`` is the
+#: per-chip HBM demand; the 90%-of-HBM fit check is the feasibility gate.
+TPU_OBJECTIVES: tuple[ObjectiveSpec, ...] = (
+    ObjectiveSpec("step_time_s", False, "s"),
+    ObjectiveSpec("mfu", True, "frac"),
+    ObjectiveSpec("hbm_gib", False, "GiB"),
+    ObjectiveSpec("chips", False, "chips"),
+)
+
+#: Latency-first by default (the planner's own primary sort); campaigns
+#: re-weight with e.g. ``mfu=1`` or ``chips=-...`` for efficiency sweeps.
+TPU_DEFAULT_WEIGHTS: Mapping[str, float] = {"step_time_s": 1.0}
+
+
+@dataclasses.dataclass(frozen=True)
+class TPUCell:
+    """One point of the TPU campaign grid: a (workload, mapping-budget)
+    pair. The dp x tp factorization of ``chips`` is NOT an axis — it is
+    searched inside the cell (the local step), mirroring how an FPGA cell
+    searches its RAV inside :func:`repro.core.explore`."""
+
+    arch: str
+    shape: str
+    chips: int
+    remat: str
+    microbatches: int
+
+    @property
+    def key(self) -> str:
+        return (f"arch={self.arch}|shape={self.shape}|chips={self.chips}"
+                f"|remat={self.remat}|mb={self.microbatches}")
+
+
+class TPUBackend(Backend):
+    """Sweep (arch x shape x chips x remat x microbatches) through the
+    analytic TPU planner; per cell, keep the best (dp, tp) mapping under
+    the cell's scalarization (feasible mappings first)."""
+
+    name = "tpu"
+    objectives = TPU_OBJECTIVES
+    default_weights = TPU_DEFAULT_WEIGHTS
+    default_store = "results/dse_campaign_tpu.jsonl"
+
+    def expand_cells(self, *, archs: Sequence[str], shapes: Sequence[str],
+                     chips: Sequence[int],
+                     remats: Sequence[str] = ("full", "dots", "none"),
+                     microbatches: Sequence[int] = (1, 2, 4)) -> list[TPUCell]:
+        """The TPU campaign grid. Remat and microbatching only exist for
+        training shapes: inference shapes collapse those axes to
+        ``(none, 1)`` and contribute one row per remaining axis. Cells the
+        spec disables (e.g. full attention at 500k context) are skipped."""
+        for s in shapes:
+            if s not in SHAPES:
+                raise KeyError(f"unknown shape {s!r}; known: {sorted(SHAPES)}")
+        for c in chips:
+            if c <= 0 or c & (c - 1):
+                raise ValueError(f"chips must be a positive power of two "
+                                 f"(got {c}); the planner factorizes the "
+                                 f"mesh into power-of-two dp x tp ways")
+        for r in remats:
+            if r not in ("full", "dots", "none"):
+                raise ValueError(f"unknown remat policy {r!r}; "
+                                 f"choose from full, dots, none")
+        cells, seen = [], set()
+        for arch in archs:
+            cfg = get_config(arch)  # raises KeyError on unknown arch
+            for shape_name in shapes:
+                shape = SHAPES[shape_name]
+                enabled, _why = cell_enabled(cfg, shape)
+                if not enabled:
+                    continue
+                train = shape.kind == "train"
+                for n in chips:
+                    for remat in (remats if train else ("none",)):
+                        for mb in (microbatches if train else (1,)):
+                            cell = TPUCell(arch, shape_name, n, remat, mb)
+                            if cell.key not in seen:
+                                seen.add(cell.key)
+                                cells.append(cell)
+        return cells
+
+    def run_cell(self, cell: TPUCell, *, base_seed=0, population=20,
+                 iterations=30, weights=None, searcher="pso",
+                 searcher_config=None, calibration=None) -> dict:
+        """Enumerate the (dp, tp) factorizations of the cell's chip count;
+        keep the best mapping: feasible first, then highest scalarized
+        objective (ties to the earlier factorization — smaller tp)."""
+        t0 = time.perf_counter()
+        cfg = get_config(cell.arch)
+        shape = SHAPES[cell.shape]
+        best, best_rank, evaluated = None, None, 0
+        for dp, tp in factorizations(cell.chips):
+            if shape.global_batch % dp:
+                continue
+            plan = evaluate_point(cfg, shape, cell.chips, dp, tp,
+                                  cell.remat, cell.microbatches,
+                                  calibration=calibration)
+            evaluated += 1
+            obj = self._plan_objectives(cell, plan)
+            # rank ignoring the feasibility gate (an all-infeasible cell
+            # still reports its least-bad mapping), feasible plans first
+            raw = scalarize_values({**obj, "feasible": True},
+                                   self.objectives, weights,
+                                   self.default_weights)
+            rank = (plan.fits, raw)
+            if best_rank is None or rank > best_rank:
+                best, best_rank = (plan, obj), rank
+        if best is None:
+            raise ValueError(f"no valid dp x tp factorization for {cell.key} "
+                             f"(global_batch={shape.global_batch})")
+        plan, obj = best
+        rec = {
+            "schema": SCHEMA_VERSION,
+            "backend": self.name,
+            "cell_key": cell.key,
+            "cell": dataclasses.asdict(cell),
+            "arch_name": cfg.name,
+            "search": self.search_config(base_seed=base_seed,
+                                         population=population,
+                                         iterations=iterations,
+                                         weights=weights,
+                                         calibration=calibration),
+            "plan": {"dp": plan.dp, "tp": plan.tp,
+                     "bound": plan.roofline.bound},
+            "objectives": obj,
+            "fitness": self.scalarize(obj, weights),
+            "evaluations": evaluated,
+            "search_time_s": round(time.perf_counter() - t0, 4),
+            "weights": dict(weights) if weights else None,
+            "trace": enumeration_trace(evaluated),
+        }
+        info = calibration.record_info(TPU_V5E.name) if calibration else None
+        if info:
+            rec["calibration"] = info
+        return rec
+
+    @staticmethod
+    def _plan_objectives(cell: TPUCell, plan) -> dict:
+        return {
+            "step_time_s": plan.predicted_step_s,
+            "mfu": plan.mfu,
+            "hbm_gib": plan.hbm_per_chip / 2**30,
+            "chips": float(cell.chips),
+            "feasible": bool(plan.fits),
+        }
+
+    def search_config(self, *, base_seed, population, iterations,
+                      weights, searcher="pso", searcher_config=None,
+                      calibration=None) -> dict:
+        """The planner enumerates its space exhaustively and
+        deterministically, so search-engine knobs and seeds are
+        irrelevant here; only the scalarization (which picks the
+        per-cell mapping) and a non-identity calibration (which moves
+        every modeled time) invalidate stored cells."""
+        return stamp_calibration(
+            {"weights": {k: float(v) for k, v in weights.items()}
+             if weights else None}, calibration)
+
+    def normalized(self, rec: Mapping) -> dict:
+        """Delivered TFLOP/s from the stored MFU (useful FLOPs / step over
+        the pod) against the pod's power/price/peak —
+        ``tflops_per_peak`` is exactly the stored MFU."""
+        o = rec["objectives"]
+        hw = TPU_V5E
+        chips = float(o["chips"])
+        peak_tflops = chips * hw.peak_flops / 1e12
+        return normalized_throughput(o["mfu"] * peak_tflops,
+                                     chips * hw.tdp_watts,
+                                     chips * hw.usd_per_hour, peak_tflops,
+                                     feasible=o.get("feasible", True))
+
+    def record_cost(self, rec: Mapping) -> tuple[float, float]:
+        return pod_cost(TPU_V5E, int(rec["objectives"]["chips"]))
+
+    def placement_point(self, rec: Mapping) -> dict:
+        p = rec["plan"]
+        return {"part": TPU_V5E.name, "count": int(rec["objectives"]["chips"]),
+                "point": f"dp{p['dp']}xtp{p['tp']}"}
+
+    def coverage_cells(self, workload_key: str) -> list:
+        """``arch/shape`` -> that workload at every default chip budget."""
+        parsed = _arch_shape(workload_key)
+        if parsed is None:
+            return []
+        arch, shape = parsed
+        return self.expand_cells(archs=[arch], shapes=[shape],
+                                 chips=PLACEMENT_COUNTS)
+
+    def headline(self, rec: dict) -> str:
+        o = rec["objectives"]
+        return (f"step={o['step_time_s']:.3g}s mfu={o['mfu']:.2f} "
+                f"hbm={o['hbm_gib']:.1f}GiB")
+
+    def group_key(self, rec: dict) -> str:
+        c = rec["cell"]
+        return f"{c['arch']}/{c['shape']}"
+
+    def table_header(self) -> str:
+        return (f"{'cell':<58} {'dpxtp':<8} {'step_s':>10} {'mfu':>6} "
+                f"{'hbm_gib':>8} {'chips':>6} {'bound':<10}")
+
+    def table_row(self, rec: dict) -> str:
+        o, p = rec["objectives"], rec["plan"]
+        return (f"{rec['cell_key']:<58} {p['dp']}x{p['tp']:<6} "
+                f"{o['step_time_s']:>10.4g} {o['mfu']:>6.3f} "
+                f"{o['hbm_gib']:>8.2f} {int(o['chips']):>6} {p['bound']:<10}")
+
+    def add_axis_arguments(self, ap) -> None:
+        add_workload_arguments(ap)
+        g = ap.add_argument_group("tpu campaign axes")
+        g.add_argument("--chips", default="8,16,32",
+                       help="comma list of chip counts (powers of two)")
+
+    def cells_from_args(self, args) -> list[TPUCell]:
+        return self.expand_cells(
+            archs=_csv(args.archs), shapes=_csv(args.shapes),
+            chips=[int(c) for c in _csv(args.chips)],
+            remats=tuple(_csv(args.remats)),
+            microbatches=tuple(int(m) for m in _csv(args.microbatches)))
+
+
+# ---------------------------------------------------------------------------
+# cuda — the GPU roofline retarget over repro.core.gpu_planner
+# ---------------------------------------------------------------------------
+
+#: CUDA campaign objective vector, in report order. Mirrors the TPU
+#: vector, plus board watts: the GPU-part axis makes power a real
+#: trade-off WITHIN the family (an H100 pod beats an A100 pod on step
+#: time at the same count but burns 1.75x the board power).
+GPU_OBJECTIVES: tuple[ObjectiveSpec, ...] = (
+    ObjectiveSpec("step_time_s", False, "s"),
+    ObjectiveSpec("mfu", True, "frac"),
+    ObjectiveSpec("hbm_gib", False, "GiB"),
+    ObjectiveSpec("gpus", False, "gpus"),
+    ObjectiveSpec("watts", False, "W"),
+)
+
+#: Latency-first by default, same as the TPU backend.
+GPU_DEFAULT_WEIGHTS: Mapping[str, float] = {"step_time_s": 1.0}
+
+
+@dataclasses.dataclass(frozen=True)
+class CUDACell:
+    """One point of the CUDA campaign grid: a (workload, GPU part,
+    GPU-count budget) triple. As on the TPU side, the dp x tp
+    factorization of ``gpus`` is searched INSIDE the cell."""
+
+    arch: str
+    shape: str
+    gpu: str             # GPUSpec name (a100-40g, a100-80g, h100)
+    gpus: int
+    remat: str
+    microbatches: int
+
+    @property
+    def key(self) -> str:
+        return (f"arch={self.arch}|shape={self.shape}|gpu={self.gpu}"
+                f"|gpus={self.gpus}|remat={self.remat}"
+                f"|mb={self.microbatches}")
+
+
+class CUDABackend(Backend):
+    """Sweep (arch x shape x GPU part x GPU count x remat x microbatches)
+    through the analytic GPU roofline; per cell, keep the best (dp, tp)
+    mapping under the cell's scalarization (feasible mappings first)."""
+
+    name = "cuda"
+    objectives = GPU_OBJECTIVES
+    default_weights = GPU_DEFAULT_WEIGHTS
+    default_store = "results/dse_campaign_cuda.jsonl"
+
+    def expand_cells(self, *, archs: Sequence[str], shapes: Sequence[str],
+                     gpus: Sequence[int],
+                     gpu_types: Sequence[str] = ("a100-80g",),
+                     remats: Sequence[str] = ("full", "dots", "none"),
+                     microbatches: Sequence[int] = (1, 2, 4),
+                     ) -> list[CUDACell]:
+        """The CUDA campaign grid: the TPU backend's workload axes crossed
+        with the GPU-part axis. Inference shapes collapse (remat, mb) to
+        ``(none, 1)``; spec-disabled (arch, shape) combos are skipped."""
+        for s in shapes:
+            if s not in SHAPES:
+                raise KeyError(f"unknown shape {s!r}; known: {sorted(SHAPES)}")
+        for g in gpu_types:
+            if g not in GPUS:
+                raise KeyError(f"unknown gpu {g!r}; known: {sorted(GPUS)}")
+        for n in gpus:
+            if n <= 0 or n & (n - 1):
+                raise ValueError(f"gpus must be a positive power of two "
+                                 f"(got {n}); the planner factorizes the "
+                                 f"mesh into power-of-two dp x tp ways")
+        for r in remats:
+            if r not in ("full", "dots", "none"):
+                raise ValueError(f"unknown remat policy {r!r}; "
+                                 f"choose from full, dots, none")
+        cells, seen = [], set()
+        for arch in archs:
+            cfg = get_config(arch)  # raises KeyError on unknown arch
+            for shape_name in shapes:
+                shape = SHAPES[shape_name]
+                enabled, _why = cell_enabled(cfg, shape)
+                if not enabled:
+                    continue
+                train = shape.kind == "train"
+                for gpu in gpu_types:
+                    for n in gpus:
+                        for remat in (remats if train else ("none",)):
+                            for mb in (microbatches if train else (1,)):
+                                cell = CUDACell(arch, shape_name, gpu, n,
+                                                remat, mb)
+                                if cell.key not in seen:
+                                    seen.add(cell.key)
+                                    cells.append(cell)
+        return cells
+
+    def run_cell(self, cell: CUDACell, *, base_seed=0, population=20,
+                 iterations=30, weights=None, searcher="pso",
+                 searcher_config=None, calibration=None) -> dict:
+        """Enumerate the (dp, tp) factorizations of the cell's GPU count
+        on the cell's part; keep the best mapping: feasible first, then
+        highest scalarized objective (ties to the smaller tp)."""
+        t0 = time.perf_counter()
+        cfg = get_config(cell.arch)
+        shape = SHAPES[cell.shape]
+        hw = GPUS[cell.gpu]
+        best, best_rank, evaluated = None, None, 0
+        for dp, tp in factorizations(cell.gpus):
+            if shape.global_batch % dp:
+                continue
+            plan = gpu_planner.evaluate_point(cfg, shape, cell.gpus, dp, tp,
+                                              cell.remat, cell.microbatches,
+                                              hw, calibration=calibration)
+            evaluated += 1
+            obj = self._plan_objectives(cell, plan, hw)
+            # rank ignoring the feasibility gate (an all-infeasible cell
+            # still reports its least-bad mapping), feasible plans first
+            raw = scalarize_values({**obj, "feasible": True},
+                                   self.objectives, weights,
+                                   self.default_weights)
+            rank = (plan.fits, raw)
+            if best_rank is None or rank > best_rank:
+                best, best_rank = (plan, obj), rank
+        if best is None:
+            raise ValueError(f"no valid dp x tp factorization for {cell.key} "
+                             f"(global_batch={shape.global_batch})")
+        plan, obj = best
+        rec = {
+            "schema": SCHEMA_VERSION,
+            "backend": self.name,
+            "cell_key": cell.key,
+            "cell": dataclasses.asdict(cell),
+            "arch_name": cfg.name,
+            "search": self.search_config(base_seed=base_seed,
+                                         population=population,
+                                         iterations=iterations,
+                                         weights=weights,
+                                         calibration=calibration),
+            "plan": {"dp": plan.dp, "tp": plan.tp,
+                     "bound": plan.roofline.bound},
+            "objectives": obj,
+            "fitness": self.scalarize(obj, weights),
+            "evaluations": evaluated,
+            "search_time_s": round(time.perf_counter() - t0, 4),
+            "weights": dict(weights) if weights else None,
+            "trace": enumeration_trace(evaluated),
+        }
+        info = calibration.record_info(cell.gpu) if calibration else None
+        if info:
+            rec["calibration"] = info
+        return rec
+
+    @staticmethod
+    def _plan_objectives(cell: CUDACell, plan, hw) -> dict:
+        return {
+            "step_time_s": plan.predicted_step_s,
+            "mfu": plan.mfu,
+            "hbm_gib": plan.hbm_per_gpu / 2**30,
+            "gpus": float(cell.gpus),
+            "watts": cell.gpus * hw.tdp_watts,
+            "feasible": bool(plan.fits),
+        }
+
+    def search_config(self, *, base_seed, population, iterations,
+                      weights, searcher="pso", searcher_config=None,
+                      calibration=None) -> dict:
+        """Deterministic exhaustive enumeration, like the TPU backend:
+        only the scalarization (which picks the per-cell mapping) and a
+        non-identity calibration invalidate stored cells."""
+        return stamp_calibration(
+            {"weights": {k: float(v) for k, v in weights.items()}
+             if weights else None}, calibration)
+
+    def normalized(self, rec: Mapping) -> dict:
+        """Delivered TFLOP/s from the stored MFU against the pod's
+        power/price/peak for the cell's GPU part."""
+        o = rec["objectives"]
+        hw = GPUS[rec["cell"]["gpu"]]
+        n = float(o["gpus"])
+        peak_tflops = n * hw.peak_flops / 1e12
+        return normalized_throughput(o["mfu"] * peak_tflops, o["watts"],
+                                     n * hw.usd_per_hour, peak_tflops,
+                                     feasible=o.get("feasible", True))
+
+    def record_cost(self, rec: Mapping) -> tuple[float, float]:
+        return pod_cost(GPUS[rec["cell"]["gpu"]],
+                        int(rec["objectives"]["gpus"]))
+
+    def placement_point(self, rec: Mapping) -> dict:
+        p = rec["plan"]
+        return {"part": rec["cell"]["gpu"],
+                "count": int(rec["objectives"]["gpus"]),
+                "point": f"dp{p['dp']}xtp{p['tp']}"}
+
+    def coverage_cells(self, workload_key: str) -> list:
+        """``arch/shape`` -> that workload at every default GPU-count
+        budget, across every part in the GPU table."""
+        parsed = _arch_shape(workload_key)
+        if parsed is None:
+            return []
+        arch, shape = parsed
+        return self.expand_cells(archs=[arch], shapes=[shape],
+                                 gpus=PLACEMENT_COUNTS,
+                                 gpu_types=tuple(sorted(GPUS)))
+
+    def headline(self, rec: dict) -> str:
+        o = rec["objectives"]
+        return (f"step={o['step_time_s']:.3g}s mfu={o['mfu']:.2f} "
+                f"hbm={o['hbm_gib']:.1f}GiB {int(o['watts'])}W")
+
+    def group_key(self, rec: dict) -> str:
+        c = rec["cell"]
+        return f"{c['arch']}/{c['shape']}"
+
+    def table_header(self) -> str:
+        return (f"{'cell':<64} {'dpxtp':<8} {'step_s':>10} {'mfu':>6} "
+                f"{'hbm_gib':>8} {'gpus':>5} {'watts':>7} {'bound':<10}")
+
+    def table_row(self, rec: dict) -> str:
+        o, p = rec["objectives"], rec["plan"]
+        return (f"{rec['cell_key']:<64} {p['dp']}x{p['tp']:<6} "
+                f"{o['step_time_s']:>10.4g} {o['mfu']:>6.3f} "
+                f"{o['hbm_gib']:>8.2f} {int(o['gpus']):>5} "
+                f"{int(o['watts']):>7} {p['bound']:<10}")
+
+    def add_axis_arguments(self, ap) -> None:
+        add_workload_arguments(ap)
+        g = ap.add_argument_group("cuda campaign axes")
+        g.add_argument("--gpus", default="8,16,32",
+                       help="comma list of GPU counts (powers of two)")
+        g.add_argument("--gpu-types", default="a100-80g",
+                       help="comma list from: " + ",".join(sorted(GPUS)))
+
+    def cells_from_args(self, args) -> list[CUDACell]:
+        return self.expand_cells(
+            archs=_csv(args.archs), shapes=_csv(args.shapes),
+            gpus=[int(n) for n in _csv(args.gpus)],
+            gpu_types=tuple(_csv(args.gpu_types)),
+            remats=tuple(_csv(args.remats)),
+            microbatches=tuple(int(m) for m in _csv(args.microbatches)))
+
+
 # ---------------------------------------------------------------------------
 # registry
 # ---------------------------------------------------------------------------
 
-BACKENDS: dict[str, Backend] = {b.name: b for b in (FPGABackend(),)}
-
-#: Backends of the JAX package that the port does not have yet, and why.
-UNPORTED_BACKENDS: dict[str, str] = {
-    name: (f"backend {name!r} is not ported yet: it needs {deps}, which are "
-           f"queued in ROADMAP.md (queue 1, item 13: the TPU and CUDA backends)")
-    for name, deps in (("tpu", "core/tpu_model.py and core/tpu_planner.py"),
-                       ("cuda", "core/gpu_model.py and core/gpu_planner.py"))}
+BACKENDS: dict[str, Backend] = {b.name: b for b in (FPGABackend(),
+                                                    TPUBackend(),
+                                                    CUDABackend())}
 
 
 def get_backend(backend: str | Backend) -> Backend:
-    """Resolve a backend by name (or pass an instance through). A backend
-    of :data:`UNPORTED_BACKENDS` raises ``NotImplementedError``."""
+    """Resolve a backend by name (or pass an instance through)."""
     if isinstance(backend, Backend):
         return backend
-    if backend in UNPORTED_BACKENDS:
-        raise NotImplementedError(UNPORTED_BACKENDS[backend])
     try:
         return BACKENDS[backend]
     except KeyError:
         raise KeyError(f"unknown backend {backend!r}; "
                        f"known: {sorted(BACKENDS)}") from None
+
+
+def record_backend(rec: Mapping) -> str:
+    """Which backend wrote a store record. Legacy (PR-1) FPGA records
+    predate the field and carry no ``backend`` key."""
+    return rec.get("backend", "fpga")
 
 
 def run_cell_by_backend(backend_name: str, cell, base_seed: int,

@@ -28,6 +28,8 @@ Run as a module for the CLI::
 
     python -m repro_torch.dse.campaign --nets vgg16 --fpgas ku115,zcu102 \\
         --precisions 16,8 --searcher hyperband
+    python -m repro_torch.dse.campaign --backend tpu --archs starcoder2-3b \\
+        --shapes train_4k --chips 8,16
 """
 from __future__ import annotations
 

@@ -1,9 +1,11 @@
 """CLI for the port's DSE campaigns: ranked report + Pareto frontier
-dump (the port's copy of ``repro/dse/cli.py``). ``--backend fpga``, the
-paper's flow, is the one backend ported; ``--backend tpu|cuda`` exits
-nonzero naming what they wait for. ``--device`` replaces the reference's
-``--jax-screen``: it names where hyperband's cross-cell rung-0 screen
-runs (default: the card).
+dump, for any registered backend (the port's copy of
+``repro/dse/cli.py``). ``--backend fpga`` is the default and the paper's
+flow; ``--backend tpu`` sweeps the analytic TPU planner; ``--backend
+cuda`` sweeps the GPU roofline with the GPU part as a campaign axis.
+``--device`` replaces the reference's ``--jax-screen``: it names where
+hyperband's cross-cell rung-0 screen of the fpga cells runs (default: the
+card).
 
     python -m repro_torch.dse.campaign --nets vgg16,alexnet \\
         --fpgas ku115,zcu102 --precisions 16,8 --searcher hyperband \\
@@ -12,6 +14,18 @@ runs (default: the card).
     python -m repro_torch.dse.campaign --nets vgg16 --searcher hyperband \\
         --searcher-config screen=256,survivors=4 --device cpu \\
         --store /tmp/t.jsonl
+
+    python -m repro_torch.dse.campaign --backend tpu --archs starcoder2-3b \\
+        --shapes train_4k,decode_32k --chips 8,16,32 \\
+        --store results/dse_tpu.jsonl
+
+    python -m repro_torch.dse.campaign --backend cuda --archs starcoder2-3b \\
+        --shapes train_4k --gpus 8,16 --gpu-types a100-80g,h100 \\
+        --store results/dse_cuda.jsonl
+
+Stores render to Markdown with ``python -m repro_torch.dse.report
+<store>``; two stores (e.g. the tpu and cuda campaigns above) compare
+with ``python -m repro_torch.dse.report --compare A.jsonl B.jsonl``.
 """
 from __future__ import annotations
 
@@ -21,9 +35,8 @@ import os
 
 from repro_torch.core.search import searcher_names
 
-from .backends import (BACKENDS, UNPORTED_BACKENDS,  # noqa: F401
-                       get_backend, parse_inputs, parse_searcher_config,
-                       parse_weights)
+from .backends import (BACKENDS, get_backend, parse_inputs,  # noqa: F401
+                       parse_searcher_config, parse_weights)
 from .campaign import CampaignReport, run_campaign
 from .resilience import RetryPolicy
 
@@ -68,8 +81,7 @@ def main(argv: list[str] | None = None) -> CampaignReport:
                     "batch cap; tpu: arch x shape x chips x remat x "
                     "microbatches; cuda: the tpu axes with a GPU-part "
                     "axis instead of chips).")
-    ap.add_argument("--backend", choices=sorted({*BACKENDS, *UNPORTED_BACKENDS}),
-                    default="fpga",
+    ap.add_argument("--backend", choices=sorted(BACKENDS), default="fpga",
                     help="device family to sweep (default: fpga, the "
                          "paper's flow)")
     for be in BACKENDS.values():
@@ -152,9 +164,6 @@ def main(argv: list[str] | None = None) -> CampaignReport:
     vq.add_argument("-q", "--quiet", action="store_true",
                     help="suppress per-cell progress lines (the final "
                          "report still prints)")
-    known, _ = ap.parse_known_args(argv)
-    if known.backend in UNPORTED_BACKENDS:
-        ap.error(UNPORTED_BACKENDS[known.backend])
     args = ap.parse_args(argv)
 
     backend = get_backend(args.backend)

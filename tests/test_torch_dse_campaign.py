@@ -4,9 +4,9 @@ rung 0 per cell in NumPy here): the same records, field for field but the
 search time, for PSO and for hyperband, screened per cell
 (``screen_device=None``) and in one cross-cell call on the CPU
 (``"cpu"``); stores that either package resumes from the other; no silent
-fallback (a CUDA screen without CUDA raises, ``--backend tpu|cuda``
-exits nonzero); quarantine and ``--retry-failed``; the CLI in a
-subprocess that loads no JAX and nothing of the JAX package."""
+fallback (a CUDA screen without CUDA raises); quarantine and
+``--retry-failed``; the CLI in a subprocess that loads no JAX and nothing
+of the JAX package."""
 import json
 import os
 import subprocess
@@ -126,12 +126,6 @@ def test_screen_device_with_another_searcher_raises(tmp_path, screen_device):
         port.run_campaign(cells, str(tmp_path / "s.jsonl"), **PSO, screen_device=screen_device)
 
 
-@pytest.mark.parametrize("backend", ["tpu", "cuda"])
-def test_unported_backend_raises(tmp_path, backend):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        port.run_campaign([], str(tmp_path / "s.jsonl"), backend=backend)
-
-
 def test_permanent_fault_quarantines_and_retry_failed_clears_it(tmp_path, monkeypatch):
     cells = port.expand_cells(["vgg16"], [(224, 224)], ["ku115", "zcu102"], [16], [1])
     store = str(tmp_path / "s.jsonl")
@@ -196,10 +190,3 @@ def test_cli_runs_and_resumes_without_jax(tmp_path):
     assert again.returncode == 0, again.stderr[-2000:]
     assert "(0 new, 4 reused; 0 new evaluations" in again.stdout
     assert "screened" not in again.stdout
-
-
-@pytest.mark.parametrize("backend", ["tpu", "cuda"])
-def test_cli_refuses_unported_backend(backend):
-    r = _cli("--backend", backend)
-    assert r.returncode != 0
-    assert "not ported yet" in r.stderr and "ROADMAP.md" in r.stderr

@@ -1,9 +1,12 @@
 """The port's DSE modules are copies of the JAX package's: byte for byte but
-for the import prefix (``repro.`` -> ``repro_torch.`` on import lines), and
-where a module is cut or changed (``core/__init__``, ``dse/backends``,
-``dse/campaign``, ``dse/cli``), the parts that stay agree with the
-reference's. The port's screen reads its own copy of ``batch_eval``'s
-tables and is held to its ``screen_rav_batch``."""
+for the import prefix (``repro.`` -> ``repro_torch.`` on import lines) and
+the lines ``CHANGED`` lists (a CLI's ``prog``), and where a module is cut or
+changed (``core/__init__``, ``dse/campaign``, ``dse/cli``), the parts that
+stay agree with the reference's. ``dse/backends.py`` is the reference's
+whole but for the one renaming (``prescreen_cells_jax`` ->
+``prescreen_cells``). The packages export the reference's names. The
+port's screen reads its own copy of ``batch_eval``'s tables and is held to
+its ``screen_rav_batch``."""
 import inspect
 import re
 from pathlib import Path
@@ -13,10 +16,14 @@ import pytest
 
 pytest.importorskip("torch")
 
+import repro.calib as ref_calib  # noqa: E402
 import repro.core as ref_core  # noqa: E402
+import repro.dse as ref_dse  # noqa: E402
 import repro.dse.backends as ref_backends  # noqa: E402
 import repro.dse.campaign as ref_campaign  # noqa: E402
+import repro_torch.calib as port_calib  # noqa: E402
 import repro_torch.core as port_core  # noqa: E402
+import repro_torch.dse as port_dse  # noqa: E402
 from repro_torch.core import batch_eval, hw_specs, screen  # noqa: E402
 from repro_torch.core.layer_arrays import pack_layers  # noqa: E402
 from repro_torch.dse import backends, campaign  # noqa: E402
@@ -29,17 +36,65 @@ VERBATIM = ["core/hw_specs.py", "core/pipeline_model.py", "core/generic_model.py
             "core/search.py", "core/pso.py", "core/explorer.py",
             "obs/trace.py", "obs/__init__.py", "testing/faults.py", "testing/__init__.py",
             "dse/pareto.py", "dse/frontier.py", "dse/objectives.py", "dse/store.py",
-            "dse/resilience.py", "dse/__main__.py", "calib/calibration.py"]
+            "dse/resilience.py", "dse/__main__.py", "calib/calibration.py",
+            "core/tpu_model.py", "core/tpu_planner.py", "core/gpu_model.py",
+            "core/gpu_planner.py", "dse/report.py", "dse/obs.py", "dse/placement.py",
+            "calib/fit.py", "calib/measure.py", "calib/published.py", "calib/__main__.py"]
+
+#: The lines a copy changes beyond its imports: (port line, reference line).
+CHANGED = {
+    "dse/report.py": [('prog="python -m repro_torch.dse.report"',
+                       'prog="python -m repro.dse.report"')],
+    "dse/obs.py": [('prog="python -m repro_torch.dse.obs"', 'prog="python -m repro.dse.obs"')],
+    "dse/placement.py": [('prog="python -m repro_torch.dse.placement"',
+                          'prog="python -m repro.dse.placement"')],
+    "calib/__main__.py": [('prog="python -m repro_torch.calib"', 'prog="python -m repro.calib"')],
+    "dse/backends.py": [("(:func:`repro_torch.dse.campaign.prescreen_cells`)",
+                         "(:func:`repro.dse.campaign.prescreen_cells`)")],
+}
 
 _PORT_IMPORT = re.compile(r"^(\s*(?:from|import) )repro_torch(?=[ .])", re.MULTILINE)
 
 
+def _as_reference(path: str) -> str:
+    """The port's copy with its import lines and its ``CHANGED`` lines put back."""
+    text = _PORT_IMPORT.sub(r"\1repro", (PORT / path).read_text())
+    for ours, theirs in CHANGED.get(path, []):
+        assert text.count(ours) == 1, (path, ours)
+        text = text.replace(ours, theirs)
+    return text
+
+
 @pytest.mark.parametrize("path", VERBATIM)
 def test_dse_module_is_a_verbatim_copy(path):
-    """Each module is the reference's with only its import lines rewritten."""
+    """Each module is the reference's with only its import lines (and the
+    lines ``CHANGED`` lists) rewritten."""
     port = (PORT / path).read_text()
-    assert _PORT_IMPORT.sub(r"\1repro", port) == (REF / path).read_text()
+    assert _as_reference(path) == (REF / path).read_text()
     assert "import repro." not in port.replace("import repro_torch", "")
+
+
+def test_backends_is_the_references_whole():
+    """``dse/backends.py`` is the reference's file: imports rewritten, the
+    cross-cell screen's one renaming, nothing else; every backend is
+    registered and none is refused."""
+    ref = (REF / "dse/backends.py").read_text().replace("prescreen_cells_jax", "prescreen_cells")
+    assert _as_reference("dse/backends.py") == ref
+    assert sorted(backends.BACKENDS) == sorted(ref_backends.BACKENDS) == ["cuda", "fpga", "tpu"]
+    assert not hasattr(backends, "UNPORTED_BACKENDS")
+
+
+@pytest.mark.parametrize("pkg", ["calib", "dse"])
+def test_package_exports_the_references_names(pkg):
+    port, ref = {"calib": (port_calib, ref_calib), "dse": (port_dse, ref_dse)}[pkg]
+    assert port.__all__ == [n.replace("prescreen_cells_jax", "prescreen_cells")
+                            for n in ref.__all__]
+    for name in port.__all__:
+        ours = getattr(port, name)
+        theirs = getattr(ref, name.replace("prescreen_cells", "prescreen_cells_jax"))
+        assert type(ours).__name__ == type(theirs).__name__
+        assert getattr(ours, "__name__", name) == getattr(theirs, "__name__", name).replace(
+            "prescreen_cells_jax", "prescreen_cells")
 
 
 def test_core_exports_the_references_names():
