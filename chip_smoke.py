@@ -11,29 +11,34 @@ any failure raises and exits non-zero.
 
   (A) The conv kernel against its plain PyTorch version at every distinct
       conv shape of VGG-16 at 224x224, batch 8, in fp32 and bf16, at the
-      small shapes of the kernel tests (odd and even R), and, in bf16 from
-      a generator of their own, at tests/test_torch_conv2d.py::WGMMA_CASES
-      (each on the wgmma route). Tolerance atol = rtol = 2e-4 in fp32,
-      2e-2 in bf16. Per VGG shape it prints the plan (route ``wgmma`` or
-      ``direct``, pixel box, output channels a block, splits, blocks per
-      SM) and times, with CUDA events, the kernel (the wgmma route's
-      re-layout of x to NHWC and of w to an (R*S*C, K) matrix included),
-      the plain version and one cuDNN ``F.conv2d`` call (the yardstick; the
-      port never calls it), single calls and back to back (50 calls between
-      one pair of events, as the matmul rows of phase D), the re-layout
-      alone back to back, and the host microseconds per call of the
-      wrapper and of cuDNN; and it computes the least time the card could
-      take (bytes over 3.35 TB/s or operations over the published peak of
-      the dtype).
+      small shapes of the kernel tests (odd and even R), and, each list
+      from a generator of its own, in bf16 at
+      tests/test_torch_conv2d.py::WGMMA_CASES (each on the wgmma route) and
+      in fp32 at tests/test_torch_tf32x3.py::TF32_CONV_CASES (each on the
+      tf32x3 route). Tolerance atol = rtol = 2e-4 in fp32, 2e-2 in bf16;
+      the normalised error printed beside it. Per VGG shape it prints the
+      plan (route ``wgmma``, ``tf32x3`` or ``direct``, pixel box, output
+      channels a block, splits, blocks per SM) and times, with CUDA events,
+      the kernel (the wgmma route's re-layout of x to NHWC and of w to an
+      (R*S*C, K) matrix included, the tf32x3 route's split re-layout to
+      TF32 halves likewise), the plain version and one cuDNN ``F.conv2d``
+      call (the yardstick; the port never calls it), single calls and back
+      to back (50 calls between one pair of events, as the matmul rows of
+      phase D), the re-layout alone back to back, and the host
+      microseconds per call of the wrapper and of cuDNN; and it computes
+      the least time the card could take on the row's route (bytes over
+      3.35 TB/s or operations over the published peak of the dtype; on
+      tf32x3, three TF32 products at 495 TFLOP/s) and, in fp32, the FMA
+      bound (fp32 operations at 67 TFLOP/s) beside it.
   (B) ``hybrid_forward`` on VGG-16 at 224x224, batch 8, HybridPlan(sp=4,
       n_micro=4), in fp32 and bf16, against ``forward(use_kernel=False)``:
       normalised error max|d| / max|ref| at most 2e-4 (fp32) and 2e-2
-      (bf16), and exactly 13 conv kernel launches per forward: in bf16 12
-      on the wgmma route and 1 (the first layer, C = 3) direct, in fp32 13
-      direct.
+      (bf16), and exactly 13 conv kernel launches per forward: 1 (the
+      first layer, C = 3) direct and 12 on the wgmma route in bf16, on the
+      tf32x3 route in fp32.
   (C) The pipelined head at VGG width: 4 x conv(128, 3) as the head, then
       pool(2) and 2 x conv(256, 3), input (8, 128, 112, 112), against
-      ``forward(use_kernel=False)`` at 2e-4.
+      ``forward(use_kernel=False)`` at 2e-4 (fp32: every conv on tf32x3).
   (D) The matmul, RMSNorm and flash-attention kernels against their plain
       versions, fp32 and bf16, at every shape StarCoder2-3B's serving path
       gives them (prefill at batch 4 x 512 tokens, decode at 4 slots) and
@@ -52,7 +57,9 @@ any failure raises and exits non-zero.
       events after an L2 flush, the device kept busy while the host queues
       them (matmul rows cycle over copies of the weight so that each call
       reads it from device memory); matmul rows print the route, tile and
-      K splits of the kernel's plan, flash rows the route, RMSNorm rows the
+      K splits of the kernel's plan (fp32: ``tf32x3`` at prefill, ``simt``
+      at the tick), the fp32 rows the split pass alone back to back and
+      the FMA bound beside the route's one, flash rows the route, RMSNorm rows the
       plan (route, vectors a thread, threads a row, rows a block, 16-byte
       loads or not). The host microseconds per matmul and RMSNorm wrapper
       call on a decode shape are printed beside torch.matmul's and
@@ -91,10 +98,10 @@ any failure raises and exits non-zero.
   (H) Prefill: ``api.prefill_logits`` on Zamba2-2.7B at full width and depth
       (54 Mamba2 layers, 9 uses of the shared attention block), bf16
       weights from a seeded generator, batch 4 x 512 (two SSD chunks):
-      finite (4, 512, 32000) fp32 logits, exactly 280 matmul (all wgmma),
-      127 RMSNorm, 9 flash-attention (all wgmma; the fp32 forward's 9 all
-      simt) and 54 SSD launches (all wgmma; the fp32 forward's 54 all simt)
-      per forward. Each of the 63
+      finite (4, 512, 32000) fp32 logits, exactly 280 matmul (all wgmma;
+      the fp32 forward's 280 all tf32x3), 127 RMSNorm, 9 flash-attention
+      (all wgmma; the fp32 forward's 9 all simt) and 54 SSD launches (all
+      wgmma; the fp32 forward's 54 all simt) per forward. Each of the 63
       blocks and the head is held kernel route against plain route fed the
       same input: normalised error at most 2e-2 in bf16 and 2e-4 in fp32.
       The end-to-end errors (bf16 and fp32) are printed, not gated: with
@@ -157,7 +164,8 @@ any failure raises and exits non-zero.
       bf16 weights: prefill 4 x 512 in bf16 and in fp32, exactly 2173
       matmul launches (6 an mLSTM block, 1 + 512 an sLSTM block: its
       recurrent product at every step, the head; bf16: wi and wf, N = 4,
-      on simt, the rest wgmma; fp32: all simt) and 49 RMSNorm. The random
+      on simt, the rest wgmma; fp32: the recurrent products, M = 4, on
+      simt, the rest tf32x3) and 49 RMSNorm. The random
       model amplifies roundings (the end-to-end errors are printed), so
       every block and the head is held kernel route against plain route
       on the same input (2e-2 bf16, 2e-4 fp32) and the blocks chained by
@@ -170,12 +178,13 @@ any failure raises and exits non-zero.
   (O) Whisper-base at full width and depth (6 + 6 layers, d 512, 8 heads of
       64, vocab 51865), seeded frames (4, 1500, 512) and tokens 4 x 448,
       bf16 and fp32: ``encode`` (36 matmul, 6 flash, not causal) and
-      ``decode_train`` (61 matmul, the tied head at N = 51865 on simt; 12
-      flash: causal self-attention and cross-attention, 448 queries over
-      1500 keys) against the plain route on the same input; then
-      ``prefill_cross`` (12 matmul) and 448 ``decode_step``s (49 matmul
-      each), whose last logits match ``decode_train``'s at the last
-      position (2e-2 bf16, 2e-4 fp32).
+      ``decode_train`` (61 matmul, the tied head at N = 51865 on simt in
+      bf16; 12 flash: causal self-attention and cross-attention, 448
+      queries over 1500 keys) against the plain route on the same input;
+      then ``prefill_cross`` (12 matmul) and 448 ``decode_step``s (49
+      matmul each), whose last logits match ``decode_train``'s at the last
+      position (2e-2 bf16, 2e-4 fp32). In fp32 every product at M > 64 is
+      on tf32x3, the decode steps' (M = 4) on simt.
   (P) Kimi-K2 at full width, 1 of its 61 layers (one layer's 384 experts
       are 33.8 GB in bf16; the weights drawn expert by expert), prefill 4 x
       512 (capacity 54): exactly 1161 matmul launches (attention 4, router
@@ -197,7 +206,7 @@ any failure raises and exits non-zero.
       outlive 400 s. (Q1) phase C's net, weights and input through
       ``hybrid_forward(mesh=)``, each rank holding its own head conv:
       exactly 9 conv launches a rank (7 ticks + 2 tail convs, 36 in all,
-      fp32 direct), the output within 2e-4 of phase C's one-device
+      fp32 tf32x3), the output within 2e-4 of phase C's one-device
       output, and each rank's stage-weight gradient (plain route under
       autograd, loss the output's sum) within 2e-4 of the sequential
       loss's. (Q2) phase M's model, drawn on every rank from phase M's
@@ -303,9 +312,12 @@ any failure raises and exits non-zero.
   a generator of its own.
 
 Then it holds the bf16 conv of VGG-16 to cuDNN in the same run (the sum of
-single calls over one forward at most 1.5x cuDNN's), the bf16 matmul of
-both LMs to torch.matmul (the prefill sum of single calls at most 4x
-torch.matmul's, the decode tick's back-to-back sum at most 2x), and the
+single calls over one forward at most 1.5x cuDNN's), the fp32 conv of
+VGG-16 back to back to at most 1.0x cuDNN's fp32 (TF32 off), the bf16
+matmul of both LMs to torch.matmul (the prefill sum of single calls at
+most 4x torch.matmul's, the decode tick's back-to-back sum at most 2x),
+their fp32 prefill products back to back to at most 1.0x torch.matmul's
+fp32 (TF32 off), and the
 bf16 flash attention of a prefill, back to back, to SDPA's: at most 2x on
 StarCoder2 (hd 128), 3x on Zamba2 (hd 80), the bf16 RMSNorm of each LM's
 prefill, back to back, to at most 1.05x F.rms_norm's (the single-call and
@@ -373,6 +385,7 @@ from repro_torch.data.pipeline import DataConfig, TokenPipeline  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.conv2d.conv2d import plan_for as conv_plan_for  # noqa: E402
 from repro_torch.kernels.conv2d.conv2d import relayout  # noqa: E402
+from repro_torch.kernels.conv2d.conv2d import split as conv_split  # noqa: E402
 from repro_torch.kernels.conv2d.ops import conv2d  # noqa: E402
 from repro_torch.kernels.conv2d.ref import conv2d_ref  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import \
@@ -381,6 +394,7 @@ from repro_torch.kernels.flash_attention.ops import attn_fn as flash_attn_fn  # 
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.matmul.matmul import plan_for  # noqa: E402
+from repro_torch.kernels.matmul.matmul import split as matmul_split  # noqa: E402
 from repro_torch.kernels.matmul.ops import matmul  # noqa: E402
 from repro_torch.kernels.matmul.ref import matmul_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm.ops import rmsnorm  # noqa: E402
@@ -409,8 +423,11 @@ from repro_torch.train.steps import build_step, cast_bf16, init_params_on_mesh  
 from repro_torch.train.trainer import TrainConfig, Trainer, restore_trainer_state  # noqa: E402
 
 # H100 SXM published peaks (dense): fp32 outside the tensor cores, bf16 on
-# them, and HBM3 bandwidth.
+# them, TF32 on them, and HBM3 bandwidth. The tf32x3 routes do three TF32
+# products for every fp32-accurate one: 165 TFLOP/s of fp32 work.
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+TF32_FLOPS = 495e12
+TF32_PRODUCTS = 3
 HBM_BYTES_PER_S = 3.35e12
 TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}  # tests/test_kernels.py::_tol
 SAME = 1e-6  # a model's blocks chained by hand against its entry point: the same arithmetic
@@ -425,7 +442,17 @@ WGMMA_CASES = [(2, 64, 9, 11, 64, 3), (1, 128, 7, 13, 200, 3), (2, 64, 5, 7, 8, 
                (1, 64, 12, 10, 72, 4), (1, 128, 6, 9, 136, 7), (1, 64, 30, 33, 128, 3),
                (2, 128, 17, 19, 64, 3)]
 WGMMA_SEED = 15
+# (N, C, H, W, K, R) of tests/test_torch_tf32x3.py::TF32_CONV_CASES but VGG's
+# 14 x 14 layer (a VGG row below), fp32 on the tf32x3 route, drawn from a
+# generator of their own likewise.
+TF32_CASES = [(2, 64, 9, 11, 64, 3), (1, 128, 7, 13, 200, 3), (2, 32, 5, 7, 8, 1),
+              (1, 96, 12, 10, 72, 4), (1, 128, 6, 9, 136, 7), (1, 64, 30, 33, 12, 3),
+              (2, 128, 17, 19, 64, 3)]
+TF32_SEED = 25
 CONV_FLOOR = 1.5  # the bf16 VGG conv sum at most this times cuDNN's, same run
+# The fp32 VGG conv sum and each LM's fp32 prefill product sum, back to
+# back, at most this times cuDNN's and torch.matmul's with TF32 off, same run.
+FP32_FLOOR = 1.0
 REPLACES = "src/repro/kernels/conv2d/conv2d.py:40"
 SOURCE = "src/repro_torch/kernels/conv2d/csrc/conv2d.cu"
 
@@ -509,11 +536,34 @@ def least_ms(nbytes: float, ops: float, dtype) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def bound(n, c, h, w, k, r, dtype) -> tuple[float, str]:
-    """Least time in ms (bytes or operations) for one conv, and which bounds it."""
+def route_bound(nbytes: float, ops: float, dtype, route: str) -> dict:
+    """The least time of the work on its route: ``least_ms``, but on tf32x3
+    (fp32-accurate work on the tensor cores) three TF32 products' operations
+    over the TF32 peak; in fp32 also the FMA bound, ``fma_bound_ms``."""
+    b_ms, b_by = least_ms(nbytes, ops, dtype)
+    out = {"bound_ms": b_ms, "bound_by": b_by}
+    if dtype == torch.float32:
+        out["fma_bound_ms"] = b_ms
+    if route == "tf32x3":
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = TF32_PRODUCTS * ops / TF32_FLOPS * 1e3
+        out.update(bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def conv_work(n, c, h, w, k, r, dtype) -> tuple[float, float]:
+    """(bytes, operations) of one conv: each input read once, the output
+    written once; 2 operations a multiply-add."""
     elem = torch.finfo(dtype).bits // 8
-    by = elem * (n * c * h * w + k * c * r * r + n * k * h * w)
-    return least_ms(by, 2 * n * k * c * h * w * r * r, dtype)
+    return (elem * (n * c * h * w + k * c * r * r + n * k * h * w),
+            2 * n * k * c * h * w * r * r)
+
+
+def check_tf32_off() -> None:
+    """The fp32 floors compare with cuDNN and torch.matmul in full fp32."""
+    check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
+          "an fp32 floor needs TF32 off in cuDNN and torch.matmul")
 
 
 def conv_inputs(n, c, h, w, k, r, dtype, gen):
@@ -555,6 +605,15 @@ def phase_a(gen) -> dict:
                              TOL[torch.bfloat16])
         print(f"A bfloat16 N={n} C={c} H={h} W={w} K={k} R=S={r}: {plan_text(p)}  "
               f"max_abs_err {err:.3e}")
+    tgen = torch.Generator(device="cuda").manual_seed(TF32_SEED)
+    for n, c, h, w, k, r in TF32_CASES:
+        x, wt = conv_inputs(n, c, h, w, k, r, torch.float32, tgen)
+        p = conv_plan_for(x, wt)
+        check(p.route == "tf32x3", f"TF32_CASES {(n, c, h, w, k, r)} planned {p}")
+        out, ref = counted_conv(x, wt, "tf32x3"), conv2d_ref(x, wt)
+        err = max_err_within(out, ref, TOL[torch.float32])
+        print(f"A float32  N={n} C={c} H={h} W={w} K={k} R=S={r}: {plan_text(p)}  "
+              f"max_abs_err {err:.3e}  normalised {normalised_err(out, ref):.3e}")
 
     convs = [l for l in vgg16(224).layers if l.kind == "conv"]
     shapes = sorted({(l.c, l.k, l.h) for l in convs}, key=lambda s: (-s[2], s[0], s[1]))
@@ -565,13 +624,16 @@ def phase_a(gen) -> dict:
         for c, k, h in shapes:
             x, wt = conv_inputs(BATCH, c, h, h, k, 3, dtype, gen)
             p = conv_plan_for(x, wt)
-            err = max_err_within(counted_conv(x, wt, p.route), conv2d_ref(x, wt), TOL[dtype])
-            b_ms, b_by = bound(BATCH, c, h, h, k, 3, dtype)
+            out, ref = counted_conv(x, wt, p.route), conv2d_ref(x, wt)
+            err = max_err_within(out, ref, TOL[dtype])
+            bnd = route_bound(*conv_work(BATCH, c, h, h, k, 3, dtype), dtype, p.route)
+            copies = {"wgmma": relayout, "tf32x3": conv_split}.get(p.route)
             row = dict(c=c, k=k, h=h, route=p.route, box=list(p.box), splits=p.splits,
                        blocks=p.blocks, tile_n=p.tile_n, max_abs_err=err,
+                       normalised_err=normalised_err(out, ref),
                        ms=time_ms(lambda: conv2d(x, wt)),
-                       copies_b2b_ms=(b2b_ms(lambda i: relayout(x, wt))
-                                      if p.route == "wgmma" else 0.0),
+                       copies_b2b_ms=(0.0 if copies is None
+                                      else b2b_ms(lambda i: copies(x, wt))),
                        plain_ms=time_ms(lambda: conv2d_ref(x, wt)),
                        library_ms=time_ms(lambda: F.conv2d(x, wt, padding=1)),
                        b2b_ms=b2b_ms(lambda i: conv2d(x, wt)),
@@ -579,47 +641,61 @@ def phase_a(gen) -> dict:
                        host_us=host_us_per_call(lambda: conv2d(x, wt), calls=50),
                        library_host_us=host_us_per_call(lambda: F.conv2d(x, wt, padding=1),
                                                         calls=50),
-                       bound_ms=b_ms, bound_by=b_by,
-                       layers=sum((l.c, l.k, l.h) == (c, k, h) for l in convs))
+                       **bnd, layers=sum((l.c, l.k, l.h) == (c, k, h) for l in convs))
+            fma_txt = ("" if "fma_bound_ms" not in row else
+                       f"; FMA bound {row['fma_bound_ms']:.4f} ms, "
+                       f"{row['fma_bound_ms'] / row['b2b_ms']:.1%} of it")
             rows.append(row)
             print(f"A {str(dtype)[6:]:8s} VGG N={BATCH} C={c:3d} K={k:3d} H=W={h:3d} "
-                  f"x{row['layers']}: {plan_text(p)}  max_abs_err {err:.3e}  "
-                  f"kernel {row['ms']:.4f} ms  bound {b_ms:.4f} ms ({b_by}), "
-                  f"{b_ms / row['b2b_ms']:.1%} of it back to back  plain "
+                  f"x{row['layers']}: {plan_text(p)}  max_abs_err {err:.3e}  normalised "
+                  f"{row['normalised_err']:.3e}  kernel {row['ms']:.4f} ms  bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+                  f"{row['bound_ms'] / row['b2b_ms']:.1%} of it back to back{fma_txt}  plain "
                   f"{row['plain_ms']:.4f} ms  cuDNN {row['library_ms']:.4f} ms  back to back: "
                   f"kernel {row['b2b_ms']:.4f} ms (re-layout {row['copies_b2b_ms']:.4f} ms)  "
                   f"cuDNN {row['b2b_library_ms']:.4f} ms  host: wrapper {row['host_us']:.1f} us "
                   f"per call, cuDNN {row['library_host_us']:.1f} us")
-            del x, wt
+            del x, wt, out, ref
         summary[dtype] = rows
     return summary
 
 
 def vgg_forward_summary(rows) -> dict:
     """Per-layer numbers summed over the 13 convs of one VGG-16 forward."""
-    tot = {key: sum(r[key] * r["layers"] for r in rows)
-           for key in ("ms", "plain_ms", "library_ms", "b2b_ms", "copies_b2b_ms",
-                       "b2b_library_ms", "bound_ms")}
+    keys = ("ms", "plain_ms", "library_ms", "b2b_ms", "copies_b2b_ms", "b2b_library_ms",
+            "bound_ms") + (("fma_bound_ms",) if "fma_bound_ms" in rows[0] else ())
+    tot = {key: sum(r[key] * r["layers"] for r in rows) for key in keys}
     ops_ms = sum(r["bound_ms"] * r["layers"] for r in rows if r["bound_by"] == "operations")
     tot["bound_by"] = "operations" if ops_ms >= tot["bound_ms"] / 2 else "bytes"
     tot["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    tot["normalised_err"] = max(r["normalised_err"] for r in rows)
     return tot
 
 
 def conv_floor(rows) -> None:
-    """The redesigned bf16 conv against cuDNN in this run: the sum of single
-    calls over one VGG-16 forward at most CONV_FLOOR x cuDNN's."""
+    """The redesigned conv against cuDNN in this run: in bf16 the sum of
+    single calls over one VGG-16 forward at most CONV_FLOOR x cuDNN's; in
+    fp32 the back-to-back sum at most FP32_FLOOR x cuDNN's with TF32 off."""
     for dtype in DTYPES:
         tot = vgg_forward_summary(rows[dtype])
+        fma = ("" if "fma_bound_ms" not in tot else
+               f"; FMA bound {tot['fma_bound_ms']:.3f} ms, "
+               f"{tot['fma_bound_ms'] / tot['b2b_ms']:.1%} of it")
         print(f"conv2d VGG-16 {name_of(dtype)}: {tot['ms']:.3f} ms against cuDNN "
               f"{tot['library_ms']:.3f} ms ({tot['ms'] / tot['library_ms']:.2f}x); back to back "
               f"{tot['b2b_ms']:.3f} ms (re-layout {tot['copies_b2b_ms']:.3f} ms) against "
               f"{tot['b2b_library_ms']:.3f} ms ({tot['b2b_ms'] / tot['b2b_library_ms']:.2f}x); "
               f"bound {tot['bound_ms']:.3f} ms ({tot['bound_by']}), "
-              f"{tot['bound_ms'] / tot['b2b_ms']:.1%} of it back to back")
+              f"{tot['bound_ms'] / tot['b2b_ms']:.1%} of it back to back{fma}; normalised "
+              f"error at most {tot['normalised_err']:.3e}")
     tot = vgg_forward_summary(rows[torch.bfloat16])
     ratio = tot["ms"] / tot["library_ms"]
     check(ratio <= CONV_FLOOR, f"bf16 VGG-16 conv at {ratio:.2f}x cuDNN (floor {CONV_FLOOR}x)")
+    check_tf32_off()
+    tot = vgg_forward_summary(rows[torch.float32])
+    ratio = tot["b2b_ms"] / tot["b2b_library_ms"]
+    check(ratio <= FP32_FLOOR, f"fp32 VGG-16 conv back to back at {ratio:.2f}x cuDNN's "
+          f"(floor {FP32_FLOOR}x)")
 
 
 def phase_b(gen) -> dict:
@@ -634,8 +710,8 @@ def phase_b(gen) -> dict:
         hybrid_forward(params, net, x, plan)  # warm-up
         torch.cuda.synchronize()
         walls = []
-        want = {"direct": 1, "wgmma": 12} if dtype == torch.bfloat16 else \
-            {"direct": 13, "wgmma": 0}
+        want = {"direct": 1, "wgmma": 12, "tf32x3": 0} if dtype == torch.bfloat16 else \
+            {"direct": 1, "wgmma": 0, "tf32x3": 12}
         for _ in range(3):
             conv2d.launches = 0
             conv2d.launches_by_route = dict.fromkeys(conv2d.launches_by_route, 0)
@@ -737,7 +813,8 @@ ATTN_SHORT_Q = [(2, 40, 100, 4, 2, 32, None), (1, 70, 200, 6, 2, 48, 64)]
 ATTN_ROUTE_CASES = [(2, 200, 200, True, None), (1, 300, 420, True, None),
                     (1, 330, 330, True, 100), (1, 77, 77, False, None)]
 ATTN_ROUTE_SEED = 16
-ROUTE_NAMES = ("simt", "wgmma")
+ROUTE_NAMES = ("simt", "wgmma")  # flash attention's and the SSD's
+MATMUL_ROUTES = ("simt", "wgmma", "tf32x3")
 # bf16 flash attention per prefill, back to back, at most this times SDPA's
 # in the same run: hd 128 (StarCoder2), hd 80 (Zamba2, whose PV runs at
 # N = 128 over the zero-filled atom: 37.5 % of it wasted).
@@ -926,7 +1003,11 @@ def print_row(phase: str, tag: str, dtype, desc: str, row: dict) -> None:
                   + ("none" if b2b_lib is None else f"{b2b_lib:.4f} ms"))
     if "plan" in row:
         extra += f"  plan {row['plan']}"
+    if "fma_bound_ms" in row:
+        extra += (f"  FMA bound {row['fma_bound_ms']:.4f} ms  split pass back to back "
+                  f"{row['split_b2b_ms']:.4f} ms")
     print(f"{phase} {name_of(dtype):8s} {tag:15s} {desc}: max_abs_err {row['max_abs_err']:.3e}  "
+          f"normalised {row['normalised_err']:.3e}  "
           f"kernel {row['ms']:.4f} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']})  "
           f"plain {row['plain_ms']:.4f} ms  library {lib}  "
           f"x{row['count']} per {row['per']}{extra}")
@@ -951,9 +1032,15 @@ def lm_kernel_rows(cfg, gen, phase: str) -> dict:
                                 lambda: torch.matmul(a, b), el * (m * k + k * n + m * n),
                                 2 * m * k * n, dtype, m=m, k=k, n=n, count=count, per=per)
                 bs = l2_copies(b)
-                row.update(plan_for(a, b)._asdict(),
+                p = plan_for(a, b)
+                row.update(p._asdict(),
                            b2b_ms=b2b_ms(lambda i: matmul(a, bs[i % len(bs)])),
                            b2b_library_ms=b2b_ms(lambda i: torch.matmul(a, bs[i % len(bs)])))
+                row.update(route_bound(el * (m * k + k * n + m * n), 2 * m * k * n, dtype,
+                                       p.route))
+                if dtype == torch.float32:
+                    row["split_b2b_ms"] = (b2b_ms(lambda i: matmul_split(a, bs[i % len(bs)]))
+                                           if p.route == "tf32x3" else 0.0)
                 print_row(phase, "matmul", dtype, f"M={m} K={k} N={n}", row)
                 mm_rows.append(row)
                 del a, b, bs
@@ -1062,8 +1149,12 @@ def lm_summary(rows, per: str) -> dict:
         key for key in ("b2b_ms", "b2b_library_ms") if rows[0].get(key) is not None)
     tot = {key: sum(r[key] * r["count"] for r in rows) for key in keys}
     if "route" in rows[0]:
+        names = MATMUL_ROUTES if "tile" in rows[0] else ROUTE_NAMES
         tot["routes"] = {route: sum(r["count"] for r in rows if r["route"] == route)
-                         for route in ROUTE_NAMES}
+                         for route in names}
+    for key in ("split_b2b_ms", "fma_bound_ms"):
+        if key in rows[0]:
+            tot[key] = sum(r[key] * r["count"] for r in rows)
     tot["library_ms"] = (None if any(r["library_ms"] is None for r in rows)
                          else sum(r["library_ms"] * r["count"] for r in rows))
     ops_ms = sum(r["bound_ms"] * r["count"] for r in rows if r["bound_by"] == "operations")
@@ -1402,6 +1493,10 @@ def phase_h(gen):
         params32 = cast_tree(params, torch.float32)
         reset_counts()
         out32 = api.prefill_logits(params32, cfg, batch, compute_dtype=torch.float32)
+        mm32 = {r: want["matmul"] if r == "tf32x3" else 0 for r in MATMUL_ROUTES}
+        check(matmul.launches_by_route == mm32, f"Zamba2 fp32 prefill: matmul routes "
+              f"{matmul.launches_by_route}, expected {mm32}")
+        got["float32_matmul_routes"] = dict(matmul.launches_by_route)
         check_flash_routes("Zamba2 fp32 prefill", "simt", want["flash_attention"])
         check_ssd_routes("Zamba2 fp32 prefill", "simt", want["ssd"])
         plain32 = api.prefill_logits(params32, cfg, batch, compute_dtype=torch.float32,
@@ -1925,7 +2020,7 @@ def check_launches(where: str, got: dict, matmul_routes: dict, rms: int, flash: 
     want = {"matmul": sum(matmul_routes.values()), "rmsnorm": rms, "flash_attention": flash,
             "ssd": 0}
     check({k: got[k] for k in want} == want, f"{where}: launches {got}, expected {want}")
-    mm = {r: matmul_routes.get(r, 0) for r in ROUTE_NAMES}
+    mm = {r: matmul_routes.get(r, 0) for r in MATMUL_ROUTES}
     check(got["matmul_routes"] == mm, f"{where}: matmul routes {got['matmul_routes']}, "
           f"expected {mm}")
     fl = {r: flash if r == flash_route else 0 for r in ROUTE_NAMES}
@@ -1933,11 +2028,12 @@ def check_launches(where: str, got: dict, matmul_routes: dict, rms: int, flash: 
           f"{got['flash_attention_routes']}, expected {fl}")
 
 
-def on_route(dtype, n: int, simt: int = 0) -> dict:
-    """``n`` products, ``simt`` of them on simt whatever the dtype (an N that
-    is not a multiple of 8), the rest on the dtype's route."""
+def on_route(dtype, n: int, simt: int = 0, small: int = 0) -> dict:
+    """``n`` products, ``small`` of them at M <= 64. In bf16 ``simt`` of
+    them on simt (an N that is not a multiple of 8), the rest on wgmma; in
+    fp32 the small ones on simt, the rest on tf32x3."""
     if dtype == torch.float32:
-        return {"simt": n}
+        return {"tf32x3": n - small, "simt": small}
     return {"wgmma": n - simt, "simt": simt}
 
 
@@ -2053,11 +2149,14 @@ def phase_m(keep: dict) -> dict:
 def xlstm_launches(cfg, seq: int, dtype) -> tuple[dict, int]:
     """(matmul launches by route, RMSNorm launches) of one xLSTM forward over
     ``seq`` tokens (1: a decode tick): 6 products an mLSTM block (wi and wf
-    have N = n_heads, not a multiple of 8: simt), 1 + seq an sLSTM block
-    (its recurrent product at every step), the head; 2 norms a block and ln_f."""
+    have N = n_heads, not a multiple of 8: simt in bf16), 1 + seq an sLSTM
+    block (its recurrent product at every step, M = the batch), the head; 2
+    norms a block and ln_f."""
     n_s = sum(recurrent._is_slstm(cfg, i) for i in range(cfg.n_layers))
     n_m = cfg.n_layers - n_s
-    return on_route(dtype, 6 * n_m + (1 + seq) * n_s + 1, 2 * n_m), 2 * cfg.n_layers + 1
+    n = 6 * n_m + (1 + seq) * n_s + 1
+    return (on_route(dtype, n, 2 * n_m, small=seq * n_s if seq > 1 else n),
+            2 * cfg.n_layers + 1)
 
 
 def block_name(bp, i: int) -> str:
@@ -2254,7 +2353,7 @@ def phase_o() -> dict:
 
             (last, cache), got_s, steps_ms = timed_counted(steps)
             step_ms = steps_ms / WHISPER_TOKENS
-            per_step = on_route(dtype, 8 * ld + 1, head_simt)
+            per_step = on_route(dtype, 8 * ld + 1, head_simt, small=8 * ld + 1)
             check_launches(f"O {name_of(dtype)} {WHISPER_TOKENS} decode steps", got_s,
                            {r: n * WHISPER_TOKENS for r, n in per_step.items()}, 0)
             # the launches of one step, read from the counters of the 448
@@ -2647,12 +2746,12 @@ def phase_q(keep: dict) -> dict:
     check(all(r["backend"] == Q_BACKEND and r["transport"] == "host" for r in results),
           f"Q: backends {[(r['backend'], r['transport']) for r in results]}")
 
-    # Q1: 7 ticks + the 2 tail convs a rank, all fp32 on the direct route
+    # Q1: 7 ticks + the 2 tail convs a rank, all fp32 on the tf32x3 route
     tail = sum(l.kind == "conv" for l in net.layers[plan.sp:])
     per = plan.n_micro + Q_RANKS - 1 + tail
     for rank, r in enumerate(results):
         q = r["q1"]
-        check(q["launches"]["conv2d_routes"] == {"direct": per, "wgmma": 0},
+        check(q["launches"]["conv2d_routes"] == {"direct": 0, "wgmma": 0, "tf32x3": per},
               f"Q1 rank {rank}: conv launches {q['launches']['conv2d_routes']}, expected {per}")
         check(q["err"] <= TOL[torch.float32] and q["grad_err"] <= TOL[torch.float32],
               f"Q1 rank {rank}: against phase C {q['err']:.3e}, stage gradient {q['grad_err']:.3e}")
@@ -3827,8 +3926,23 @@ def phase_u(prefill_ms: float | None = None) -> dict:
 def matmul_floors(rows, hybrid_rows) -> None:
     """The redesigned matmul against torch.matmul in this run, bf16: the
     prefill sum of single calls at most 4x torch.matmul's, the decode tick's
-    back-to-back sum at most 2x."""
+    back-to-back sum at most 2x; fp32: the prefill sum back to back at most
+    FP32_FLOOR x torch.matmul's with TF32 off."""
+    check_tf32_off()
     for arch, by in ((LM_ARCH, rows["matmul"]), (HYBRID_ARCH, hybrid_rows["matmul"])):
+        pre = lm_summary(by[torch.float32], "prefill")
+        r32 = pre["b2b_ms"] / pre["b2b_library_ms"]
+        print(f"matmul {arch} fp32 prefill: back to back {pre['b2b_ms']:.3f} ms (the split "
+              f"pass alone {pre['split_b2b_ms']:.3f} ms) against torch.matmul "
+              f"{pre['b2b_library_ms']:.3f} ms ({r32:.2f}x); bound {pre['bound_ms']:.3f} ms "
+              f"({pre['bound_ms'] / pre['b2b_ms']:.1%} of it; tf32x3 rows at three TF32 "
+              f"products), FMA bound {pre['fma_bound_ms']:.3f} ms "
+              f"({pre['fma_bound_ms'] / pre['b2b_ms']:.1%}); "
+              f"single calls {pre['ms']:.3f} ms against {pre['library_ms']:.3f} ms; routes "
+              f"{pre['routes']}; normalised error at most "
+              f"{max(r['normalised_err'] for r in by[torch.float32]):.3e}")
+        check(r32 <= FP32_FLOOR, f"{arch}: fp32 matmul at {r32:.2f}x torch.matmul back to "
+              f"back at prefill (floor {FP32_FLOOR}x)")
         pre = lm_summary(by[torch.bfloat16], "prefill")
         tick = lm_summary(by[torch.bfloat16], "decode tick")
         r_pre, r_tick = pre["ms"] / pre["library_ms"], tick["b2b_ms"] / tick["b2b_library_ms"]
@@ -3902,6 +4016,8 @@ def lm_entries(rows, launches, serving, hybrid_rows, hybrid_launches, hybrid_ser
         if name == "matmul":
             out["launches_by_route"] = prefill["matmul_routes"]
             out["serving_launches_by_route"] = serve["matmul_routes"]
+            if "float32_matmul_routes" in prefill:
+                out["float32"]["launches_by_route"] = prefill["float32_matmul_routes"]
         if name in ("flash_attention", "ssd"):
             out["launches_by_route"] = prefill[f"{name}_routes"]
         return out

@@ -35,3 +35,18 @@ def is_fake(*tensors: torch.Tensor) -> bool:
     output's shape and launches nothing, and whose FLOP formula the dry
     run's counter reads."""
     return any(isinstance(t, FakeTensor) for t in tensors)
+
+
+SCRATCH_ALIGN = 256  # bytes between the parts of a kernel's scratch (TMA needs 16)
+
+
+def scratch(sizes, device) -> tuple:
+    """One uninitialised byte buffer holding parts of ``sizes`` bytes, each
+    SCRATCH_ALIGN-aligned, and the parts' byte offsets (None for a part of
+    size 0): a kernel's re-laid-out operands and split-K workspace, one
+    allocation a call."""
+    offsets, end = [], 0
+    for size in sizes:
+        offsets.append(end if size else None)
+        end += -(-size // SCRATCH_ALIGN) * SCRATCH_ALIGN
+    return torch.empty(end, dtype=torch.uint8, device=device), offsets

@@ -42,8 +42,27 @@
 //    SMs idle (14 x 14 at batch 8), one block per SM with a deeper ring,
 //    and the (tap, channel) steps are cut into splits whose fp32 partials a
 //    second kernel adds in a fixed order into NCHW.
-//  * direct (fp32, and bf16 shapes TMA cannot take: C = 3, C % 64 != 0,
-//    K % 8 != 0): the CUDA-core kernel of the port's first version. Each
+//  * tf32x3 (fp32, C % 32 == 0): the same implicit GEMM on fp32 split into
+//    TF32 halves, x = x_hi + x_lo (hopper.cuh): one TF32 product misses
+//    the fp32 tolerance, the three products x_lo w_hi + x_hi w_lo + x_hi
+//    w_hi per k8 into one fp32 accumulator carry an fp32 product's error,
+//    at 165 TFLOP/s of fp32-accurate work against 67 of fp32 FMA. The
+//    re-layout (hopper::split_kernel, one launch) writes x_hi, x_lo as NHWC
+//    and w_hi, w_lo as (K, R*S*C), row k holding tap t = r*S + s of channel
+//    c at column t*C + c: .tf32 wgmma takes no transpose, so the weights
+//    go K-major, each output channel's (tap, channel) run contiguous. A K
+//    step is 32 channels (one 128-byte swizzle row of fp32): the producer
+//    loads x_hi's and x_lo's 4-D boxes of 32 channels x BW x BH pixels
+//    (the same signed coordinates and halo zero fill) and w_hi's and
+//    w_lo's boxes of 32 columns x BN rows at column t*C + c0. A stage is
+//    2 x 16 KB of pixels and 2 x BN x 128 bytes of weights: 3 stages at
+//    BN = 128, 4 at 64, 192 KB, one block per SM; the tensor-core partial
+//    sum goes to an fp32 sum in registers every 4 steps (the tensor
+//    cores' additions truncate: hopper::TF32X3_PROMOTE). The epilogue and
+//    the split reduction are the bf16 route's, writing fp32.
+//  * direct (fp32 with C % 32 != 0 (VGG's first layer, C = 3), and bf16
+//    shapes TMA cannot take: C % 64 != 0, K % 8 != 0): the CUDA-core
+//    kernel of the port's first version. Each
 //    block computes BK = 64 output channels x (TH x TW) = (8 x 16) output
 //    pixels of one image from the unpadded NCHW input: it stages the
 //    TH + R - 1 input rows it needs (the paper's line buffer), zero outside
@@ -275,6 +294,52 @@ int kchunk_of(int steps, int splits) {
   return ceil_div(steps, kchunk) == splits ? kchunk : 0;
 }
 
+// The epilogue of both implicit-GEMM routes: this consumer thread's part of
+// a 128-pixel x BN-channel tile (at pixel (h0, w0) of image img, output
+// channel n0) from the m64nBN fragment, cast and written to y, or as an
+// fp32 partial to ws[blockIdx.z] (laid out as y is) when ws is given.
+// Warp w of warpgroup wgi holds rows 16w + lane/4 (+ 8), columns 8j +
+// 2 (lane % 4) (+ 1) in acc[4j + {0, 1}] (+ {2, 3}). Row i of the box is
+// pixel (h0 + i / bw, w0 + i % bw); column j is output channel n0 + j.
+// Written straight from the fragment: 16-byte runs of one channel per
+// store; staging the tile through shared memory for whole sectors measured
+// 1-10 % slower at every VGG-16 shape (PERF.md).
+template <int BN, typename T>
+__device__ __forceinline__ void store_tile(const float (&acc)[BN / 2], T* __restrict__ y,
+                                           float* __restrict__ ws, const Geo& g, int img, int h0,
+                                           int w0, int n0) {
+  const int tid = threadIdx.x, wgi = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const size_t hw = (size_t)g.h * g.w;
+  size_t pix[2];
+  bool inside[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = wgi * 64 + warp * 16 + lane / 4 + 8 * h;
+    const int ph = h0 + row / g.bw, pw = w0 + row % g.bw;
+    inside[h] = ph < g.h && pw < g.w;
+    pix[h] = (size_t)img * g.k * hw + (size_t)ph * g.w + pw;
+  }
+  float* part = ws == nullptr ? nullptr : ws + (size_t)blockIdx.z * g.n * g.k * hw;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      const int col = n0 + 8 * j + 2 * (lane % 4) + b;
+      if (col >= g.k) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (!inside[h]) continue;
+        const size_t at = pix[h] + (size_t)col * hw;
+        const float v = acc[4 * j + 2 * h + b];
+        if (part != nullptr)
+          part[at] = v;
+        else
+          y[at] = from_f32<T>(v);
+      }
+    }
+  }
+}
+
 // One split (blockIdx.z) of one 128-pixel x BN-channel tile. With
 // ws == nullptr the tile is cast and written to y; otherwise its fp32
 // partial goes to ws[blockIdx.z], laid out as y is.
@@ -359,55 +424,27 @@ conv2d_wgmma(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ 
   }
   wgmma_wait<0>();
   fence_operands(acc);
-
-  // Fragment of m64nBN: warp w of the warpgroup holds rows 16w + lane/4
-  // (+ 8), columns 8j + 2 (lane % 4) (+ 1) in acc[4j + {0, 1}] (+ {2, 3}).
-  // Row i of the box is pixel (h0 + i / bw, w0 + i % bw); column j is
-  // output channel n0 + j. Written straight from the fragment: 16-byte
-  // runs of one channel per store; staging the tile through shared memory
-  // for whole sectors measured 1-10 % slower at every VGG-16 shape (PERF.md).
-  const int warp = (tid % 128) / 32, lane = tid % 32;
-  const size_t hw = (size_t)g.h * g.w;
-  size_t pix[2];
-  bool inside[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = wgi * 64 + warp * 16 + lane / 4 + 8 * h;
-    const int ph = h0 + row / g.bw, pw = w0 + row % g.bw;
-    inside[h] = ph < g.h && pw < g.w;
-    pix[h] = (size_t)img * g.k * hw + (size_t)ph * g.w + pw;
-  }
-  float* part = ws == nullptr ? nullptr : ws + (size_t)blockIdx.z * g.n * g.k * hw;
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-    for (int b = 0; b < 2; ++b) {
-      const int col = n0 + 8 * j + 2 * (lane % 4) + b;
-      if (col >= g.k) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        if (!inside[h]) continue;
-        const size_t at = pix[h] + (size_t)col * hw;
-        const float v = acc[4 * j + 2 * h + b];
-        if (part != nullptr)
-          part[at] = v;
-        else
-          y[at] = __float2bfloat16(v);
-      }
-    }
-  }
+  store_tile<BN>(acc, y, ws, g, img, h0, w0, n0);
 }
 
 // y = cast(sum over z of ws[z]), the partials added in order z = 0, 1, ...
+template <typename T>
 __global__ void __launch_bounds__(256)
-splitk_reduce(const float* __restrict__ ws, __nv_bfloat16* __restrict__ y, size_t total,
-              int splits) {
+splitk_reduce(const float* __restrict__ ws, T* __restrict__ y, size_t total, int splits) {
   for (size_t i = (size_t)blockIdx.x * 256 + threadIdx.x; i < total;
        i += (size_t)gridDim.x * 256) {
     float s = 0.f;
     for (int z = 0; z < splits; ++z) s += ws[z * total + i];
-    y[i] = __float2bfloat16(s);
+    y[i] = from_f32<T>(s);
   }
+}
+
+template <typename T>
+cudaError_t reduce(const float* ws, T* y, const Geo& g, int splits, cudaStream_t stream) {
+  const size_t total = (size_t)g.n * g.k * g.h * g.w;
+  const long long rb = ((long long)total + 255) / 256;
+  splitk_reduce<T><<<(int)(rb < 8 * 132 ? rb : 8 * 132), 256, 0, stream>>>(ws, y, total, splits);
+  return cudaGetLastError();
 }
 
 // The operands' re-layout: in (batch, P, Q) -> out (batch, Q, P), row
@@ -543,10 +580,7 @@ cudaError_t launch(const void* x, const void* w, void* y, void* xt, void* wt, fl
       map_x, map_w, out, splits > 1 ? ws : nullptr, g);
   e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return e;
-  const size_t total = (size_t)g.n * g.k * g.h * g.w;
-  const long long rb = ((long long)total + 255) / 256;
-  splitk_reduce<<<(int)(rb < 8 * 132 ? rb : 8 * 132), 256, 0, stream>>>(ws, out, total, splits);
-  return cudaGetLastError();
+  return reduce(ws, out, g, splits, stream);
 }
 
 // (tile_n, blocks per SM) -> the kernel's configuration.
@@ -563,6 +597,160 @@ cudaError_t dispatch(int tile_n, int blocks, const void* x, const void* w, void*
 }
 
 }  // namespace wg
+
+// ---------------------------------------------------------------------------
+// tf32x3 route: the implicit GEMM on fp32 split into TF32 halves
+// ---------------------------------------------------------------------------
+
+namespace tf {
+
+using wg::Geo;
+constexpr int BM = 128;                   // pixels per block: two consumer warpgroups of 64
+constexpr int BK = hopper::ATOM_F32;      // input channels per K step, one 128-byte swizzle row
+constexpr int CONSUMERS = 2;
+constexpr int THREADS = 128 * CONSUMERS + 32;  // consumer warpgroups, producer warp
+constexpr int A_BYTES = BM * BK * 4;           // one half of the pixel box: 16 KB
+
+// BN output channels a block (128, or 64 where K <= 64) and the ring depth
+// that fills 192 KB: one block per SM.
+template <int BN_, int STAGES_>
+struct Cfg {
+  static constexpr int BN = BN_, STAGES = STAGES_;
+  static constexpr int B_BYTES = BN * BK * 4;
+  static constexpr int STAGE_BYTES = 2 * A_BYTES + 2 * B_BYTES;  // x_hi, x_lo, w_hi, w_lo
+  static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
+  static_assert(BN == 64 || BN == 128, "m64n64k8 or m64n128k8");
+  static_assert(B_BYTES % 1024 == 0, "1024-byte aligned tiles");
+};
+
+// The split operands: x_hi, x_lo (N, H, W, C) and w_hi, w_lo (K, R*S*C).
+struct Split {
+  float *x_hi, *x_lo, *w_hi, *w_lo;
+};
+
+// x (N, C, H, W) -> x_hi, x_lo (N, H, W, C); w (K, C, R, S) -> w_hi, w_lo
+// (K, R*S*C); one launch.
+cudaError_t split(const void* x, const void* w, const Split& o, const Geo& g,
+                  cudaStream_t stream) {
+  return hopper::split_launch(
+      hopper::split_job(x, o.x_hi, o.x_lo, g.c, g.h * g.w, g.c, true), g.n,
+      hopper::split_job(w, o.w_hi, o.w_lo, g.c, g.r * g.s, g.c, true), g.k, stream);
+}
+
+// One split (blockIdx.z) of one 128-pixel x BN-channel tile; as
+// wg::conv2d_wgmma, on four maps and in fp32.
+template <typename CF>
+__global__ void __launch_bounds__(THREADS, 1)
+conv2d_tf32x3(const __grid_constant__ CUtensorMap map_xhi, const __grid_constant__ CUtensorMap map_xlo,
+              const __grid_constant__ CUtensorMap map_whi, const __grid_constant__ CUtensorMap map_wlo,
+              float* __restrict__ y, float* __restrict__ ws, const Geo g) {
+  using namespace hopper;
+  constexpr int STAGES = CF::STAGES, BN = CF::BN, STAGE_BYTES = CF::STAGE_BYTES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t full0 = base + STAGES * STAGE_BYTES, empty0 = full0 + STAGES * 8;
+
+  const int n0 = (blockIdx.x % g.tiles_k) * BN;
+  int rest = blockIdx.x / g.tiles_k;
+  const int w0 = (rest % g.tiles_w) * g.bw;
+  rest /= g.tiles_w;
+  const int h0 = (rest % g.tiles_h) * g.bh;
+  const int img = rest / g.tiles_h;
+  const int it0 = blockIdx.z * g.kchunk;
+  const int n_k = min(g.steps, it0 + g.kchunk) - it0;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);                  // the producer's expect_tx
+      mbar_init(empty0 + 8 * s, CONSUMERS * 128);  // every consumer thread
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS * 128) {  // the producer warp; one thread issues
+    if (tid == CONSUMERS * 128) {
+      const int chunks = g.c / BK;
+      for (int it = 0; it < n_k; ++it) {
+        const int st = it % STAGES;
+        mbar_wait(empty0 + 8 * st, ((it / STAGES) & 1) ^ 1);
+        const uint32_t full = full0 + 8 * st, sa = base + st * STAGE_BYTES;
+        const uint32_t sb = sa + 2 * A_BYTES;
+        const int step = it0 + it;
+        const int t = step / chunks, c0 = (step - t * chunks) * BK;
+        const int r = t / g.s, s = t - r * g.s;
+        const int cw = w0 + s - g.pl, ch = h0 + r - g.pt;
+        // Every box counts whole, its zero fill included.
+        mbar_arrive_expect_tx(full, STAGE_BYTES);
+        tma_load_4d(sa, &map_xhi, full, c0, cw, ch, img);
+        tma_load_4d(sa + A_BYTES, &map_xlo, full, c0, cw, ch, img);
+        tma_load_2d(sb, &map_whi, full, t * g.c + c0, n0);
+        tma_load_2d(sb + CF::B_BYTES, &map_wlo, full, t * g.c + c0, n0);
+      }
+    }
+    return;
+  }
+
+  const int wgi = tid / 128;  // this consumer warpgroup's 64 pixels of the box
+  float acc[BN / 2];
+  tf32x3_consume<BN, BK, STAGES, STAGE_BYTES, A_BYTES, CF::B_BYTES>(acc, base, full0, empty0,
+                                                                    n_k, wgi * 64 * 128);
+  wg::store_tile<BN>(acc, y, ws, g, img, h0, w0, n0);
+}
+
+// x: NCHW, w: (K, C, R, S), y: NCHW, all fp32; o: the split operands
+// (written here first), 16-byte aligned.
+template <typename CF>
+cudaError_t launch(const void* x, const void* w, void* y, const Split& o, float* ws, Geo g,
+                   int splits, int device, cudaStream_t stream) {
+  if (g.c % BK || g.bw < 1 || g.bh < 1 || g.bw * g.bh != BM ||
+      ((uintptr_t)o.x_hi | (uintptr_t)o.x_lo | (uintptr_t)o.w_hi | (uintptr_t)o.w_lo) % 16 ||
+      (splits > 1 && ws == nullptr))
+    return cudaErrorInvalidValue;
+  g.steps = g.r * g.s * (g.c / BK);
+  g.kchunk = wg::kchunk_of(g.steps, splits);
+  g.tiles_w = ceil_div(g.w, g.bw);
+  g.tiles_h = ceil_div(g.h, g.bh);
+  g.tiles_k = ceil_div(g.k, CF::BN);
+  const long long blocks = (long long)g.tiles_k * g.tiles_w * g.tiles_h * g.n;
+  if (g.kchunk == 0 || blocks > 0x7fffffffLL || splits > 65535) return cudaErrorInvalidValue;
+  cudaError_t e = split(x, w, o, g, stream);
+  if (e != cudaSuccess) return e;
+  const int rsc = g.r * g.s * g.c;
+  CUtensorMap xhi, xlo, whi, wlo;
+  if (!hopper::encode_4d_f32(&xhi, o.x_hi, g.n, g.h, g.w, g.c, g.bw, g.bh) ||
+      !hopper::encode_4d_f32(&xlo, o.x_lo, g.n, g.h, g.w, g.c, g.bw, g.bh) ||
+      !hopper::encode_2d_f32(&whi, o.w_hi, g.k, rsc, CF::BN) ||
+      !hopper::encode_2d_f32(&wlo, o.w_lo, g.k, rsc, CF::BN))
+    return cudaErrorInvalidValue;
+  // Above 48 KB of dynamic shared memory a kernel must opt in, once per device.
+  static std::atomic<unsigned long long> ready{0};
+  const unsigned long long bit = 1ull << (device & 63);
+  if (!(ready.load(std::memory_order_relaxed) & bit)) {
+    e = cudaFuncSetAttribute(conv2d_tf32x3<CF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             CF::SMEM);
+    if (e != cudaSuccess) return e;
+    ready.fetch_or(bit);
+  }
+  float* out = static_cast<float*>(y);
+  conv2d_tf32x3<CF><<<dim3((unsigned)blocks, 1, splits), THREADS, CF::SMEM, stream>>>(
+      xhi, xlo, whi, wlo, out, splits > 1 ? ws : nullptr, g);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return e;
+  return wg::reduce(ws, out, g, splits, stream);
+}
+
+cudaError_t dispatch(int tile_n, const void* x, const void* w, void* y, const Split& o, float* ws,
+                     const Geo& g, int splits, int device, cudaStream_t stream) {
+  switch (tile_n) {
+    case 128: return launch<Cfg<128, 3>>(x, w, y, o, ws, g, splits, device, stream);
+    case 64: return launch<Cfg<64, 4>>(x, w, y, o, ws, g, splits, device, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace tf
 
 }  // namespace
 
@@ -614,6 +802,38 @@ int repro_conv2d_relayout(const void* x, const void* w, void* xt, void* wt, int 
   if (e != cudaSuccess) return (int)e;
   const wg::Geo g{n, c, h, wd, k, r, s, 0, 0, 0, 0, 0, 0, 0, 0, 0};
   return (int)wg::relayout(x, w, xt, wt, g, static_cast<cudaStream_t>(stream));
+}
+
+// The tf32x3 route, fp32 only: x, w, y as the wgmma route's; x_hi, x_lo
+// (N, H, W, C) and w_hi, w_lo (K, R * S * C) are scratch the call fills with
+// the split operands, 16-byte aligned; a box of bw x bh = 128 pixels; splits
+// > 1 takes an fp32 workspace of splits * N * K * H * W values; tile_n:
+// output channels per block, 128 or 64. Returns a cudaError_t (0 on
+// success).
+int repro_conv2d_tf32x3(const void* x, const void* w, void* y, void* x_hi, void* x_lo,
+                        void* w_hi, void* w_lo, void* ws, int n, int c, int h, int wd, int k,
+                        int r, int s, int bw, int bh, int splits, int tile_n, int device,
+                        void* stream) {
+  cudaError_t e = on_device(device);
+  if (e != cudaSuccess) return (int)e;
+  const wg::Geo g{n, c, h, wd, k, r, s, (r - 1) / 2, (s - 1) / 2, bw, bh, 0, 0, 0, 0, 0};
+  const tf::Split o{static_cast<float*>(x_hi), static_cast<float*>(x_lo),
+                    static_cast<float*>(w_hi), static_cast<float*>(w_lo)};
+  return (int)tf::dispatch(tile_n, x, w, y, o, static_cast<float*>(ws), g, splits, device,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// The tf32x3 route's split re-layout alone (x -> x_hi, x_lo; w -> w_hi,
+// w_lo as above), for tests and timing.
+int repro_conv2d_split(const void* x, const void* w, void* x_hi, void* x_lo, void* w_hi,
+                       void* w_lo, int n, int c, int h, int wd, int k, int r, int s, int device,
+                       void* stream) {
+  cudaError_t e = on_device(device);
+  if (e != cudaSuccess) return (int)e;
+  const wg::Geo g{n, c, h, wd, k, r, s, 0, 0, 0, 0, 0, 0, 0, 0, 0};
+  const tf::Split o{static_cast<float*>(x_hi), static_cast<float*>(x_lo),
+                    static_cast<float*>(w_hi), static_cast<float*>(w_lo)};
+  return (int)tf::split(x, w, o, g, static_cast<cudaStream_t>(stream));
 }
 
 const char* repro_cuda_error_string(int err) {

@@ -4,7 +4,8 @@ The counterpart of ``repro/kernels/conv2d/ops.py::conv2d``. A CUDA tensor
 launches the CUDA kernel (or raises) on the route ``conv2d.plan_for``
 picks; a CPU tensor takes the plain version ``conv2d_ref``.
 ``conv2d.launches`` counts kernel launches, one per call, and
-``conv2d.launches_by_route`` splits them by route (``wgmma``, ``direct``).
+``conv2d.launches_by_route`` splits them by route (``wgmma``, ``tf32x3``,
+``direct``).
 It raises when autograd would record the call (``refuse_grad``): the
 kernel has no backward, and training takes the plain route.
 """

@@ -35,15 +35,35 @@
 //    0.60 ps): the decode path is this kernel on 64-row tiles, split along
 //    K so that ~2 blocks per SM stream B. Blocks walk M fastest, so the
 //    blocks in flight share a column of B tiles and A stays in L2.
-//  * simt (fp32, and bf16 operands TMA cannot take): the CUDA-core kernel
-//    of the port's first version. 128 x 128 tiles (256 threads, an 8 x 8
-//    block of sums each) for M > 64, 16 x 128 for M <= 64; tiles of A
-//    (transposed) and B staged through shared memory, the next K step
-//    loaded into registers while the current one is computed. Its ceiling
-//    is the 67 TFLOP/s fp32 rate; fp32 stays here because TF32 tensor
-//    cores would miss the fp32 tolerance.
+//  * tf32x3 (fp32 with M > 64, whatever the alignment): fp32 on the
+//    tensor cores. One TF32 product (10 mantissa bits) misses the fp32
+//    tolerance of 2e-4 (3e-4 at K = 3072); split into TF32 halves, x =
+//    x_hi + x_lo, the three products a_lo b_hi + a_hi b_lo + a_hi b_hi
+//    carry the error of an fp32 product (a_lo b_lo, below 2^-22 of it, is
+//    left out). Three products at the card's 495 TFLOP/s of dense TF32 are
+//    165 TFLOP/s of fp32-accurate work, 2.5x the 67 TFLOP/s of fp32 FMA. A
+//    split pass (hopper::split_kernel, one launch) first writes A_hi, A_lo
+//    (M, Kp) and Bt_hi, Bt_lo (N, Kp), K zero-padded to whole 32-deep steps
+//    (Kp), into scratch the wrapper allocates: .tf32 wgmma takes no
+//    transpose, so B goes K-major, and the main loop needs no alignment
+//    condition. Then the wgmma route's shape at BK = 32 (one 128-byte
+//    swizzle row of fp32): 128 x 128 tiles, one producer warp filling a
+//    ring of 3 stages of four 16 KB tiles (A_hi, A_lo, B_hi, B_lo: 192 KB,
+//    one block per SM), two consumer warpgroups issuing the three
+//    m64n128k8 products per k8 into one tensor-core accumulator, added to
+//    an fp32 sum in registers every 4 stages (the tensor cores' additions
+//    truncate: hopper::TF32X3_PROMOTE).
+//  * simt (fp32 with M <= 64, and bf16 operands TMA cannot take): the
+//    CUDA-core kernel of the port's first version. 128 x 128 tiles (256
+//    threads, an 8 x 8 block of sums each) for M > 64, 16 x 128 for M <=
+//    64; tiles of A (transposed) and B staged through shared memory, the
+//    next K step loaded into registers while the current one is computed.
+//    Its ceiling is the 67 TFLOP/s fp32 rate. fp32 at M <= 64 (the decode
+//    tick) stays here: it is bound by reading B once, which the split pass
+//    would triple. fp32 reaches the 128 x 128 tile only from
+//    tools/tf32x3_probe.py, which times tf32x3 against it.
 //
-// Split K (both routes). When the tiles of C give fewer than two blocks
+// Split K (every route). When the tiles of C give fewer than two blocks
 // per SM (decode, the narrow K/V, B/C and dt projections at prefill), K is
 // cut into chunks of at least 256, each block writes an fp32 partial tile
 // into a workspace the wrapper allocates, and a second kernel adds the
@@ -393,6 +413,145 @@ cudaError_t dispatch(int tile, const void* a, const void* b, void* c, float* ws,
 
 }  // namespace wg
 
+// ---------------------------------------------------------------------------
+// tf32x3 route: fp32 split into TF32 halves, three tensor-core products
+// ---------------------------------------------------------------------------
+
+namespace tf {
+
+constexpr int BM = 128, BN = 128, BK = hopper::ATOM_F32;  // one 128-byte swizzle row of fp32
+constexpr int STAGES = 3, CONSUMERS = 2;
+constexpr int THREADS = 128 * CONSUMERS + 32;  // consumer warpgroups, producer warp
+constexpr int TILE_BYTES = 128 * BK * 4;       // 128 rows (of M or N) x 32 fp32: 16 KB
+constexpr int STAGE_BYTES = 4 * TILE_BYTES;    // A_hi, A_lo, B_hi, B_lo
+constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
+
+// The split operands: A_hi, A_lo (m, kp) and Bt_hi, Bt_lo (n, kp), kp % BK == 0.
+struct Split {
+  float *a_hi, *a_lo, *b_hi, *b_lo;
+};
+
+// a (m, k) -> A_hi, A_lo (m, kp); b (k, n) -> Bt_hi, Bt_lo (n, kp); one launch.
+cudaError_t split(const void* a, const void* b, const Split& w, int m, int n, int k, int kp,
+                  cudaStream_t stream) {
+  return hopper::split_launch(hopper::split_job(a, w.a_hi, w.a_lo, m, k, kp, false), 1,
+                              hopper::split_job(b, w.b_hi, w.b_lo, k, n, kp, true), 1, stream);
+}
+
+// One K chunk (blockIdx.z) of one 128 x 128 tile of C; as wg::matmul_wgmma.
+template <typename TC>
+__global__ void __launch_bounds__(THREADS, 1)
+matmul_tf32x3(const __grid_constant__ CUtensorMap map_ahi, const __grid_constant__ CUtensorMap map_alo,
+              const __grid_constant__ CUtensorMap map_bhi, const __grid_constant__ CUtensorMap map_blo,
+              TC* __restrict__ c, float* __restrict__ ws, int m, int n, int kp, int kchunk) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t full0 = base + STAGES * STAGE_BYTES, empty0 = full0 + STAGES * 8;
+
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int kb = blockIdx.z * kchunk;
+  const int n_k = (min(kp, kb + kchunk) - kb) / BK;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);                  // the producer's expect_tx
+      mbar_init(empty0 + 8 * s, CONSUMERS * 128);  // every consumer thread
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS * 128) {  // the producer warp; one thread issues
+    if (tid == CONSUMERS * 128) {
+      for (int it = 0; it < n_k; ++it) {
+        const int s = it % STAGES;
+        mbar_wait(empty0 + 8 * s, ((it / STAGES) & 1) ^ 1);
+        const uint32_t full = full0 + 8 * s, st = base + s * STAGE_BYTES;
+        const int k0 = kb + it * BK;
+        // Every box counts whole, the zero fill past M or N included.
+        mbar_arrive_expect_tx(full, STAGE_BYTES);
+        tma_load_2d(st, &map_ahi, full, k0, m0);
+        tma_load_2d(st + TILE_BYTES, &map_alo, full, k0, m0);
+        tma_load_2d(st + 2 * TILE_BYTES, &map_bhi, full, k0, n0);
+        tma_load_2d(st + 3 * TILE_BYTES, &map_blo, full, k0, n0);
+      }
+    }
+    return;
+  }
+
+  const int wgi = tid / 128;  // this consumer warpgroup's 64 rows of the tile
+  float acc[64];
+  tf32x3_consume<BN, BK, STAGES, STAGE_BYTES, TILE_BYTES, TILE_BYTES>(acc, base, full0, empty0,
+                                                                      n_k, wgi * 64 * 128);
+
+  // Fragment of m64n128 as in wg::matmul_wgmma; N has no alignment here, so
+  // a pair of columns is stored as one 8-byte vector only where n is even.
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int row0 = m0 + wgi * 64 + warp * 16 + lane / 4;
+  const int col0 = n0 + 2 * (lane % 4);
+  float* part = ws == nullptr ? nullptr : ws + (size_t)blockIdx.z * m * n;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = col0 + 8 * j;
+    if (col >= n) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row >= m) continue;
+      const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      const size_t at = (size_t)row * n + col;
+      if (part != nullptr) {
+        if (n % 2 == 0) {
+          *reinterpret_cast<float2*>(part + at) = make_float2(v0, v1);
+        } else {
+          part[at] = v0;
+          if (col + 1 < n) part[at + 1] = v1;
+        }
+      } else {
+        c[at] = from_f32<TC>(v0);
+        if (col + 1 < n) c[at + 1] = from_f32<TC>(v1);
+      }
+    }
+  }
+}
+
+// a (m, k), b (k, n) fp32, any alignment; w: the split operands (16-byte
+// aligned, written here first). The split is queued before the tensor maps
+// are encoded, so the card starts while the host encodes.
+template <typename TC>
+cudaError_t launch(const void* a, const void* b, void* c, const Split& w, float* ws, int m, int n,
+                   int k, int splits, int device, cudaStream_t stream) {
+  const int kp = ceil_div(k, BK) * BK;
+  const int kchunk = kchunk_of(kp, splits, BK);
+  if (kchunk == 0 || ceil_div(n, BN) > 65535 || splits > 65535 ||
+      ((uintptr_t)w.a_hi | (uintptr_t)w.a_lo | (uintptr_t)w.b_hi | (uintptr_t)w.b_lo) % 16)
+    return cudaErrorInvalidValue;
+  cudaError_t e = split(a, b, w, m, n, k, kp, stream);
+  if (e != cudaSuccess) return e;
+  CUtensorMap ahi, alo, bhi, blo;
+  if (!hopper::encode_2d_f32(&ahi, w.a_hi, m, kp, BM) ||
+      !hopper::encode_2d_f32(&alo, w.a_lo, m, kp, BM) ||
+      !hopper::encode_2d_f32(&bhi, w.b_hi, n, kp, BN) ||
+      !hopper::encode_2d_f32(&blo, w.b_lo, n, kp, BN))
+    return cudaErrorInvalidValue;
+  // Above 48 KB of dynamic shared memory a kernel must opt in, once per device.
+  static std::atomic<unsigned long long> ready{0};
+  const unsigned long long bit = 1ull << (device & 63);
+  if (!(ready.load(std::memory_order_relaxed) & bit)) {
+    e = cudaFuncSetAttribute(matmul_tf32x3<TC>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (e != cudaSuccess) return e;
+    ready.fetch_or(bit);
+  }
+  const dim3 grid(ceil_div(m, BM), ceil_div(n, BN), splits);
+  matmul_tf32x3<TC><<<grid, THREADS, SMEM, stream>>>(ahi, alo, bhi, blo, static_cast<TC*>(c),
+                                                     splits > 1 ? ws : nullptr, m, n, kp, kchunk);
+  return cudaGetLastError();
+}
+
+}  // namespace tf
+
 // c = cast(sum over z of ws[z]), the partials added in order z = 0, 1, ...
 template <typename TC>
 __global__ void __launch_bounds__(256)
@@ -402,6 +561,18 @@ splitk_reduce(const float* __restrict__ ws, TC* __restrict__ c, size_t mn, int s
     for (int z = 0; z < splits; ++z) s += ws[z * mn + i];
     c[i] = from_f32<TC>(s);
   }
+}
+
+// The split-K reduction after a route's launch `e` (nothing when unsplit).
+template <typename TC>
+cudaError_t reduce(cudaError_t e, const float* ws, void* c, int m, int n, int splits,
+                   cudaStream_t stream) {
+  if (e != cudaSuccess || splits == 1) return e;
+  const size_t mn = (size_t)m * n;
+  const long long blocks = ((long long)mn + 255) / 256;
+  splitk_reduce<TC><<<(int)(blocks < 8 * 132 ? blocks : 8 * 132), 256, 0, stream>>>(
+      ws, static_cast<TC*>(c), mn, splits);
+  return cudaGetLastError();
 }
 
 template <typename TA, typename TC>
@@ -417,28 +588,29 @@ cudaError_t run(int route, int tile, const void* a, const void* b, void* c, floa
   } else {
     e = cudaErrorInvalidValue;  // the wgmma route takes bf16 operands only
   }
-  if (e != cudaSuccess || splits == 1) return e;
-  const size_t mn = (size_t)m * n;
-  const long long blocks = ((long long)mn + 255) / 256;
-  splitk_reduce<TC><<<(int)(blocks < 8 * 132 ? blocks : 8 * 132), 256, 0, stream>>>(
-      ws, static_cast<TC*>(c), mn, splits);
-  return cudaGetLastError();
+  return reduce<TC>(e, ws, c, m, n, splits, stream);
+}
+
+cudaError_t on_device(int device) {
+  int current = -1;
+  cudaError_t e = cudaGetDevice(&current);
+  if (e == cudaSuccess && current != device) e = cudaSetDevice(device);
+  return e;
 }
 
 }  // namespace
 
 extern "C" {
 
-// route: 0 = simt, 1 = wgmma. tile: simt 0 = 128 x 128, 1 = 16 x 128;
-// wgmma 0 = 128 x 128, 1 = 64 x 128. splits > 1 takes an fp32 workspace of
-// splits * m * n values. in_dtype, out_dtype: 0 = float32, 1 = bfloat16.
-// Returns a cudaError_t (0 on success).
+// route: 0 = simt, 1 = wgmma (the tf32x3 route has its own entry point).
+// tile: simt 0 = 128 x 128, 1 = 16 x 128; wgmma 0 = 128 x 128, 1 = 64 x
+// 128. splits > 1 takes an fp32 workspace of splits * m * n values.
+// in_dtype, out_dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0
+// on success).
 int repro_matmul(const void* a, const void* b, void* c, void* ws, int m, int n, int k,
                  int splits, int route, int tile, int in_dtype, int out_dtype, int device,
                  void* stream) {
-  int current = -1;
-  cudaError_t e = cudaGetDevice(&current);
-  if (e == cudaSuccess && current != device) e = cudaSetDevice(device);
+  cudaError_t e = on_device(device);
   if (e != cudaSuccess) return (int)e;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(ws);
@@ -453,6 +625,45 @@ int repro_matmul(const void* a, const void* b, void* c, void* ws, int m, int n, 
                                                      device, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The tf32x3 route: a (m, k), b (k, n) fp32, c (m, n) in out_dtype (0 =
+// float32, 1 = bfloat16); a_hi, a_lo (m, kp) and b_hi, b_lo (n, kp), kp =
+// k rounded up to a multiple of 32, 16-byte aligned: scratch the call
+// fills with the split operands; splits > 1 takes an fp32 workspace of
+// splits * m * n values. Returns a cudaError_t (0 on success).
+int repro_matmul_tf32x3(const void* a, const void* b, void* c, void* a_hi, void* a_lo,
+                        void* b_hi, void* b_lo, void* ws, int m, int n, int k, int splits,
+                        int out_dtype, int device, void* stream) {
+  cudaError_t e = on_device(device);
+  if (e != cudaSuccess) return (int)e;
+  if (splits > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const tf::Split w{static_cast<float*>(a_hi), static_cast<float*>(a_lo),
+                    static_cast<float*>(b_hi), static_cast<float*>(b_lo)};
+  float* f = static_cast<float*>(ws);
+  switch (out_dtype) {
+    case 0:
+      return (int)reduce<float>(tf::launch<float>(a, b, c, w, f, m, n, k, splits, device, st), f,
+                                c, m, n, splits, st);
+    case 1:
+      return (int)reduce<__nv_bfloat16>(
+          tf::launch<__nv_bfloat16>(a, b, c, w, f, m, n, k, splits, device, st), f, c, m, n,
+          splits, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The tf32x3 route's split pass alone (a -> a_hi, a_lo; b -> b_hi, b_lo as
+// above), for tests and timing.
+int repro_matmul_split(const void* a, const void* b, void* a_hi, void* a_lo, void* b_hi,
+                       void* b_lo, int m, int n, int k, int device, void* stream) {
+  cudaError_t e = on_device(device);
+  if (e != cudaSuccess) return (int)e;
+  const tf::Split w{static_cast<float*>(a_hi), static_cast<float*>(a_lo),
+                    static_cast<float*>(b_hi), static_cast<float*>(b_lo)};
+  return (int)tf::split(a, b, w, m, n, k, ceil_div(k, tf::BK) * tf::BK,
+                        static_cast<cudaStream_t>(stream));
 }
 
 const char* repro_cuda_error_string(int err) {

@@ -118,7 +118,11 @@ def test_conv2d_kernel_matches_plain_on_card(case, name, cuda_device):
 
 @pytest.mark.parametrize("c, k, dtype, route", [
     (64, 64, BF16, "wgmma"),
-    (64, 64, FP32, "direct"),  # fp32 stays on the CUDA cores
+    (64, 64, FP32, "tf32x3"),  # fp32 split into TF32 halves on the tensor cores
+    (3, 64, FP32, "direct"),  # VGG's first layer stays on the CUDA cores in fp32 too
+    (48, 64, FP32, "direct"),  # C % 32 == 16
+    (96, 64, FP32, "tf32x3"),  # C % 32 == 0
+    (64, 12, FP32, "tf32x3"),  # any K: the weights go K-major
     (3, 64, BF16, "direct"),  # VGG's first layer
     (96, 64, BF16, "direct"),  # C % 64 == 32
     (128, 64, BF16, "wgmma"),
@@ -296,11 +300,16 @@ class _FakeLib:
         self.calls.append(("wgmma", args))
         return 0
 
+    def repro_conv2d_tf32x3(self, *args):
+        self.calls.append(("tf32x3", args))
+        return 0
+
 
 @pytest.mark.parametrize("shape, dtype", [((8, 512, 14, 14, 512, 3), BF16),
                                           ((2, 64, 9, 11, 64, 3), BF16),
                                           ((2, 64, 9, 11, 64, 3), FP32),
-                                          ((1, 3, 9, 11, 64, 3), BF16)])
+                                          ((1, 3, 9, 11, 64, 3), BF16),
+                                          ((1, 3, 9, 11, 64, 3), FP32)])
 def test_conv2d_launch_is_one_library_call(shape, dtype, monkeypatch):
     """A launch is one call into the library, on the plan's route, with its
     box, splits and blocks per SM, scratch for the NHWC and (R*S*C, K)
@@ -324,6 +333,13 @@ def test_conv2d_launch_is_one_library_call(shape, dtype, monkeypatch):
         assert (px, pw, py) == (x.data_ptr(), wt.data_ptr(), out.data_ptr())
         assert len({px, pw, py, pxt, pwt}) == 5 and (pxt | pwt) % 16 == 0
         assert (bw, bh, splits, blocks, tile_n) == (*p.box, p.splits, p.blocks, p.tile_n)
+        assert (ws is None) == (p.splits == 1) and (ws is None or ws % 16 == 0)
+    elif route == "tf32x3":
+        (px, pw, py, *parts, ws), dims = args[:8], list(args[8:15])
+        (bw, bh, splits, tile_n, dev, stream) = args[15:]
+        assert (px, pw, py) == (x.data_ptr(), wt.data_ptr(), out.data_ptr())
+        assert len({px, pw, py, *parts}) == 7 and all(v % 16 == 0 for v in parts)
+        assert (bw, bh, splits, tile_n) == (*p.box, p.splits, p.tile_n)
         assert (ws is None) == (p.splits == 1) and (ws is None or ws % 16 == 0)
     else:
         (px, pw, py, *dims, dtype_code, dev, stream) = args

@@ -119,7 +119,8 @@ BF16, FP32 = torch.bfloat16, torch.float32
 
 @pytest.mark.parametrize("mkn, dtype, aligned, route, tile", [
     ((2048, 3072, 3072), BF16, True, "wgmma", "128x128"),
-    ((2048, 3072, 3072), FP32, True, "simt", "128x128"),  # fp32 stays on the CUDA cores
+    ((2048, 3072, 3072), FP32, True, "tf32x3", "128x128"),  # fp32 split into TF32 halves
+    ((2048, 4100, 201), FP32, False, "tf32x3", "128x128"),  # whatever the alignment
     ((2048, 4104, 200), BF16, True, "wgmma", "128x128"),  # K % 8 == 0, N % 8 == 0
     ((2048, 4100, 200), BF16, True, "simt", "128x128"),  # K % 8 == 4: rows not 16 bytes
     ((2048, 4104, 204), BF16, True, "simt", "128x128"),  # N % 8 == 4
@@ -128,8 +129,10 @@ BF16, FP32 = torch.bfloat16, torch.float32
     ((65, 3072, 3072), BF16, True, "wgmma", "128x128"),  # just above the small/large switch
     ((64, 3072, 3072), BF16, True, "wgmma", "64x128"),  # at it
     ((4, 3072, 3072), BF16, True, "wgmma", "64x128"),  # a decode tick
-    ((65, 3072, 3072), FP32, True, "simt", "128x128"),
-    ((64, 3072, 3072), FP32, True, "simt", "16x128"),
+    ((65, 3072, 3072), FP32, True, "tf32x3", "128x128"),
+    ((64, 3072, 3072), FP32, True, "simt", "16x128"),  # fp32 at M <= 64 stays on simt
+    ((4, 3072, 3072), FP32, True, "simt", "16x128"),  # the fp32 decode tick
+    ((64, 4100, 201), FP32, False, "simt", "16x128"),
     ((1, 200, 129), BF16, True, "simt", "16x128"),  # M = 1, odd N
     ((33, 65, 17), BF16, True, "simt", "16x128"),  # tests/test_kernels.py::MM_CASES
     ((100, 300, 50), BF16, True, "simt", "128x128"),
@@ -226,8 +229,14 @@ def test_matmul_kernel_matches_plain_on_card(mkn, name, cuda_device):
     _, _, at, bt = _inputs(mkn, name)
     at, bt = at.to(cuda_device), bt.to(cuda_device)
     m, k, n = mkn
-    route = "wgmma" if name == "bfloat16" and k % 8 == 0 and n % 8 == 0 else "simt"
-    _check_on_card(at, bt, route)
+    _check_on_card(at, bt, _route(name, m, k, n))
+
+
+def _route(name, m, k, n):
+    """The route the plan names for an aligned (M, K) @ (K, N) in ``name``."""
+    if name == "bfloat16":
+        return "wgmma" if k % 8 == 0 and n % 8 == 0 else "simt"
+    return "tf32x3" if m > launcher.SMALL_M else "simt"
 
 
 def _check_on_card(a, b, route, out_dtype=None):
@@ -258,8 +267,7 @@ def test_matmul_model_shapes_on_card(kn, m, name, cuda_device):
     (4 x 512 rows) and at a 4-slot decode tick."""
     k, n = kn
     _, _, at, bt = _inputs((m, k, n), name, seed=k + n)
-    _check_on_card(at.to(cuda_device), bt.to(cuda_device) * k ** -0.5,
-                   "wgmma" if name == "bfloat16" else "simt")
+    _check_on_card(at.to(cuda_device), bt.to(cuda_device) * k ** -0.5, _route(name, m, k, n))
 
 
 @pytest.mark.cuda
@@ -282,8 +290,8 @@ def test_matmul_dtype_pairs_on_card(mkn, pair, cuda_device):
     """All four (operand, output) dtype pairs, on the route of the operands."""
     name, out_name = pair
     _, _, at, bt = _inputs(mkn, name)
-    _check_on_card(at.to(cuda_device), bt.to(cuda_device),
-                   "wgmma" if name == "bfloat16" else "simt", out_dtype=DTYPES[out_name])
+    _check_on_card(at.to(cuda_device), bt.to(cuda_device), _route(name, *mkn),
+                   out_dtype=DTYPES[out_name])
 
 
 @pytest.mark.cuda
