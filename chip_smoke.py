@@ -46,8 +46,8 @@ any failure raises and exits non-zero.
       48, queries shorter than keys, M = 1), and flash attention at
       StarCoder2's heads (hd 128) with S not a multiple of 128, S < Sk, a
       window and no mask (ATTN_ROUTE_CASES), each flash call counted on
-      the route its plan names (bf16 ``wgmma``, fp32 ``simt``) and the plan
-      printed. Tolerance atol = rtol = 2e-4 in fp32, 2e-2 in bf16. Per
+      the route its plan names (bf16 ``wgmma``, fp32 ``tf32x3``) and the
+      plan printed. Tolerance atol = rtol = 2e-4 in fp32, 2e-2 in bf16. Per
       full-width shape it times the kernel, the plain version and one
       PyTorch call of the same function (``torch.matmul``, ``F.rms_norm``,
       ``F.scaled_dot_product_attention`` with ``enable_gqa``; the yardstick,
@@ -57,9 +57,13 @@ any failure raises and exits non-zero.
       events after an L2 flush, the device kept busy while the host queues
       them (matmul rows cycle over copies of the weight so that each call
       reads it from device memory); matmul rows print the route, tile and
-      K splits of the kernel's plan (fp32: ``tf32x3`` at prefill, ``simt``
-      at the tick), the fp32 rows the split pass alone back to back and
-      the FMA bound beside the route's one, flash rows the route, RMSNorm rows the
+      K splits of the kernel's plan (fp32: ``tf32x3`` at prefill,
+      ``stream`` at the tick, which every fp32 tick product must take),
+      the fp32 rows the FMA bound beside the route's one, the prefill rows
+      the split pass alone back to back, the tick rows the ``simt`` route
+      they replace back to back (launched directly, not counted); flash
+      rows the route and its bound (fp32: ``tf32x3``, three TF32 products,
+      beside the FMA bound, and the ``simt`` route back to back), RMSNorm rows the
       plan (route, vectors a thread, threads a row, rows a block, 16-byte
       loads or not). The host microseconds per matmul and RMSNorm wrapper
       call on a decode shape are printed beside torch.matmul's and
@@ -100,8 +104,9 @@ any failure raises and exits non-zero.
       weights from a seeded generator, batch 4 x 512 (two SSD chunks):
       finite (4, 512, 32000) fp32 logits, exactly 280 matmul (all wgmma;
       the fp32 forward's 280 all tf32x3), 127 RMSNorm, 9 flash-attention
-      (all wgmma; the fp32 forward's 9 all simt) and 54 SSD launches (all
-      wgmma; the fp32 forward's 54 all simt) per forward. Each of the 63
+      (all wgmma; the fp32 forward's 9 all tf32x3) and 54 SSD launches (all
+      wgmma; the fp32 forward's 54 all simt) per forward; the fp32
+      forward's wall (median of 3) printed. Each of the 63
       blocks and the head is held kernel route against plain route fed the
       same input: normalised error at most 2e-2 in bf16 and 2e-4 in fp32.
       The end-to-end errors (bf16 and fp32) are printed, not gated: with
@@ -165,7 +170,7 @@ any failure raises and exits non-zero.
       matmul launches (6 an mLSTM block, 1 + 512 an sLSTM block: its
       recurrent product at every step, the head; bf16: wi and wf, N = 4,
       on simt, the rest wgmma; fp32: the recurrent products, M = 4, on
-      simt, the rest tf32x3) and 49 RMSNorm. The random
+      stream, the rest tf32x3) and 49 RMSNorm. The random
       model amplifies roundings (the end-to-end errors are printed), so
       every block and the head is held kernel route against plain route
       on the same input (2e-2 bf16, 2e-4 fp32) and the blocks chained by
@@ -184,7 +189,9 @@ any failure raises and exits non-zero.
       then ``prefill_cross`` (12 matmul) and 448 ``decode_step``s (49
       matmul each), whose last logits match ``decode_train``'s at the last
       position (2e-2 bf16, 2e-4 fp32). In fp32 every product at M > 64 is
-      on tf32x3, the decode steps' (M = 4) on simt.
+      on tf32x3, the decode steps' (M = 4) on stream but the tied head (N =
+      51865, not a multiple of 4: TMA cannot read it) on simt, and every
+      flash call on tf32x3.
   (P) Kimi-K2 at full width, 1 of its 61 layers (one layer's 384 experts
       are 33.8 GB in bf16; the weights drawn expert by expert), prefill 4 x
       512 (capacity 54): exactly 1161 matmul launches (attention 4, router
@@ -317,9 +324,11 @@ VGG-16 back to back to at most 1.0x cuDNN's fp32 (TF32 off), the bf16
 matmul of both LMs to torch.matmul (the prefill sum of single calls at
 most 4x torch.matmul's, the decode tick's back-to-back sum at most 2x),
 their fp32 prefill products back to back to at most 1.0x torch.matmul's
-fp32 (TF32 off), and the
+fp32 (TF32 off), their fp32 decode tick's products back to back to at most
+1.25x torch.matmul's and 0.5x the simt route's, the
 bf16 flash attention of a prefill, back to back, to SDPA's: at most 2x on
-StarCoder2 (hd 128), 3x on Zamba2 (hd 80), the bf16 RMSNorm of each LM's
+StarCoder2 (hd 128), 3x on Zamba2 (hd 80), the fp32 one to at most 1.0x
+SDPA's (TF32 off) and 0.5x the simt route's on both, the bf16 RMSNorm of each LM's
 prefill, back to back, to at most 1.05x F.rms_norm's (the single-call and
 decode sums printed), and the bf16 SSD at Zamba2's prefill shape, back to
 back, to at most 10x its bytes bound. Its last two
@@ -389,11 +398,15 @@ from repro_torch.kernels.conv2d.conv2d import split as conv_split  # noqa: E402
 from repro_torch.kernels.conv2d.ops import conv2d  # noqa: E402
 from repro_torch.kernels.conv2d.ref import conv2d_ref  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import \
+    launch as flash_launch  # noqa: E402
+from repro_torch.kernels.flash_attention.flash_attention import \
     plan_for as flash_plan_for  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import attn_fn as flash_attn_fn  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
-from repro_torch.kernels.matmul.matmul import plan_for  # noqa: E402
+from repro_torch.kernels.matmul.matmul import launch as matmul_launch  # noqa: E402
+from repro_torch.kernels.matmul.matmul import plan as matmul_plan  # noqa: E402
+from repro_torch.kernels.matmul.matmul import plan_for, sm_count  # noqa: E402
 from repro_torch.kernels.matmul.matmul import split as matmul_split  # noqa: E402
 from repro_torch.kernels.matmul.ops import matmul  # noqa: E402
 from repro_torch.kernels.matmul.ref import matmul_ref  # noqa: E402
@@ -486,22 +499,33 @@ def _l2_flush() -> torch.Tensor:
     return torch.empty(2 * L2_BYTES, dtype=torch.uint8, device="cuda")
 
 
+B2B_TRIES = 3  # samples b2b_ms takes at most, while the host outlasts the sleep
+
+
 def b2b_ms(fn, reps: int = B2B_REPS) -> float:
     """Device time of one call of ``fn(i)``, from ``reps`` calls back to back
     between one pair of CUDA events. The L2 is flushed first and the device
     is kept busy (``torch.cuda._sleep``) while the host queues the calls, so
-    the events time the device, not the host's launch path."""
+    the events time the device, not the host's launch path. A sample whose
+    queueing outlasted the sleep (a stalled host: the device ran dry and
+    the events timed the host) is taken again, up to B2B_TRIES times."""
     for i in range(3):
         fn(i)
     torch.cuda.synchronize()
-    _l2_flush().zero_()
-    torch.cuda._sleep(20_000_000)  # ~10 ms at the H100's clocks
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(reps):
-        fn(i)
-    end.record()
-    end.synchronize()
+    for _ in range(B2B_TRIES):
+        _l2_flush().zero_()
+        slept, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        t0 = time.perf_counter()
+        slept.record()
+        torch.cuda._sleep(20_000_000)  # ~10 ms at the H100's clocks
+        start.record()
+        for i in range(reps):
+            fn(i)
+        end.record()
+        queued_ms = (time.perf_counter() - t0) * 1e3
+        end.synchronize()
+        if queued_ms < slept.elapsed_time(start):
+            break
     return start.elapsed_time(end) / reps
 
 
@@ -813,12 +837,21 @@ ATTN_SHORT_Q = [(2, 40, 100, 4, 2, 32, None), (1, 70, 200, 6, 2, 48, 64)]
 ATTN_ROUTE_CASES = [(2, 200, 200, True, None), (1, 300, 420, True, None),
                     (1, 330, 330, True, 100), (1, 77, 77, False, None)]
 ATTN_ROUTE_SEED = 16
-ROUTE_NAMES = ("simt", "wgmma")  # flash attention's and the SSD's
-MATMUL_ROUTES = ("simt", "wgmma", "tf32x3")
+SSD_ROUTES = ("simt", "wgmma")
+FLASH_ROUTES = ("simt", "wgmma", "tf32x3")
+MATMUL_ROUTES = ("simt", "wgmma", "tf32x3", "stream")
 # bf16 flash attention per prefill, back to back, at most this times SDPA's
 # in the same run: hd 128 (StarCoder2), hd 80 (Zamba2, whose PV runs at
 # N = 128 over the zero-filled atom: 37.5 % of it wasted).
 FLASH_FLOORS = {LM_ARCH: 2.0, HYBRID_ARCH: 3.0}
+# fp32 (TF32 off in SDPA and torch.matmul), same run: each LM's flash
+# attention of a prefill back to back at most FP32_FLASH_FLOOR x SDPA's, its
+# decode tick's products back to back at most FP32_TICK_FLOOR x
+# torch.matmul's, and both at most FP32_SIMT_FLOOR x the CUDA-core route
+# (simt) they replace, timed beside them.
+FP32_FLASH_FLOOR = 1.0
+FP32_TICK_FLOOR = 1.25
+FP32_SIMT_FLOOR = 0.5
 SSD_SMALL = [(2, 128, 4, 32, 16, 32), (1, 256, 2, 64, 32, 64), (1, 64, 8, 16, 64, 16),
              (1, 100, 3, 16, 8, 256)]
 # The SSD's routes at Zamba2's heads (P = N = 64) in chunks of 64, 128 and
@@ -899,18 +932,22 @@ def reset_counts() -> None:
 
 def check_flash_routes(where: str, route: str, n: int) -> None:
     """The run just counted made ``n`` flash launches, all on ``route``."""
-    want = {name: n if name == route else 0 for name in ROUTE_NAMES}
+    want = {name: n if name == route else 0 for name in FLASH_ROUTES}
     check(flash_attention.launches_by_route == want,
           f"{where}: flash routes {flash_attention.launches_by_route}, expected {want}")
 
 
 def expected_flash_route(dtype) -> str:
+    return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+
+
+def expected_ssd_route(dtype) -> str:
     return "wgmma" if dtype == torch.bfloat16 else "simt"
 
 
 def check_ssd_routes(where: str, route: str, n: int) -> None:
     """The run just counted made ``n`` SSD launches, all on ``route``."""
-    want = {name: n if name == route else 0 for name in ROUTE_NAMES}
+    want = {name: n if name == route else 0 for name in SSD_ROUTES}
     check(ssd.launches_by_route == want,
           f"{where}: ssd routes {ssd.launches_by_route}, expected {want}")
 
@@ -920,7 +957,7 @@ def counted_ssd(args, chunk: int):
     (bf16 wgmma, fp32 simt)."""
     x, _, _, b, c = args
     route = ssd_plan_for(x, b, c, min(chunk, x.shape[1]))
-    check(route == expected_flash_route(x.dtype), f"ssd {x.dtype} planned {route}")
+    check(route == expected_ssd_route(x.dtype), f"ssd {x.dtype} planned {route}")
     before, by = ssd.launches, dict(ssd.launches_by_route)
     out = ssd(*args, chunk=chunk)
     check(ssd.launches == before + 1 and ssd.launches_by_route[route] == by[route] + 1,
@@ -940,9 +977,29 @@ def counted_flash(q, k, v, causal: bool, window):
     return out, route
 
 
+def simt_matmul(a, b):
+    """a @ b on the simt route, launched directly and not counted: the
+    CUDA-core kernel that the stream route replaces, with the K splits the
+    plan gives it (as it plans operands TMA cannot read)."""
+    (m, k), n = a.shape, b.shape[1]
+    p = matmul_plan(m, n, k, a.dtype, False, sm_count(a.device.index or 0))
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    matmul_launch(a, b, out, p, torch.cuda.current_stream().cuda_stream)
+    return out
+
+
+def simt_flash(q, k, v):
+    """Causal flash attention on the simt route, launched directly and not
+    counted: the CUDA-core kernel that the tf32x3 route replaces."""
+    out = torch.empty_like(q)
+    flash_launch(q, k, v, out, "simt", torch.cuda.current_stream().cuda_stream, causal=True,
+                 window=None)
+    return out
+
+
 def flash_route_cases(phase: str, cfg) -> None:
     """The flash kernel against its plain version at ``cfg``'s heads on
-    ATTN_ROUTE_CASES, bf16 on wgmma and fp32 on simt, the plan printed."""
+    ATTN_ROUTE_CASES, bf16 on wgmma and fp32 on tf32x3, the plan printed."""
     gen = torch.Generator(device="cuda").manual_seed(ATTN_ROUTE_SEED)
     h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     for dtype in DTYPES:
@@ -1004,8 +1061,11 @@ def print_row(phase: str, tag: str, dtype, desc: str, row: dict) -> None:
     if "plan" in row:
         extra += f"  plan {row['plan']}"
     if "fma_bound_ms" in row:
-        extra += (f"  FMA bound {row['fma_bound_ms']:.4f} ms  split pass back to back "
-                  f"{row['split_b2b_ms']:.4f} ms")
+        extra += f"  FMA bound {row['fma_bound_ms']:.4f} ms"
+    if row.get("split_b2b_ms"):
+        extra += f"  split pass back to back {row['split_b2b_ms']:.4f} ms"
+    if "simt_b2b_ms" in row:
+        extra += f"  simt back to back {row['simt_b2b_ms']:.4f} ms"
     print(f"{phase} {name_of(dtype):8s} {tag:15s} {desc}: max_abs_err {row['max_abs_err']:.3e}  "
           f"normalised {row['normalised_err']:.3e}  "
           f"kernel {row['ms']:.4f} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']})  "
@@ -1041,6 +1101,11 @@ def lm_kernel_rows(cfg, gen, phase: str) -> dict:
                 if dtype == torch.float32:
                     row["split_b2b_ms"] = (b2b_ms(lambda i: matmul_split(a, bs[i % len(bs)]))
                                            if p.route == "tf32x3" else 0.0)
+                if dtype == torch.float32 and m <= 64:
+                    # the fp32 tick: on the stream route, timed beside the
+                    # CUDA-core route (simt) it replaces, which is not counted
+                    check(p.route == "stream", f"fp32 matmul M={m} K={k} N={n} planned {p}")
+                    row["simt_b2b_ms"] = b2b_ms(lambda i: simt_matmul(a, bs[i % len(bs)]))
                 print_row(phase, "matmul", dtype, f"M={m} K={k} N={n}", row)
                 mm_rows.append(row)
                 del a, b, bs
@@ -1066,15 +1131,17 @@ def lm_kernel_rows(cfg, gen, phase: str) -> dict:
         def sdpa():
             return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
 
+        work = el * (2 * q.numel() + k.numel() + v.numel()), 4 * b * h * s * s * hd / 2
         row = timed_row(lambda: flash_attention(q, k, v, causal=True),
-                        lambda: attention_ref(q, k, v, causal=True), sdpa,
-                        el * (2 * q.numel() + k.numel() + v.numel()),
-                        4 * b * h * s * s * hd / 2, dtype, b=b, s=s, sk=s, h=h, kv=kv, hd=hd,
+                        lambda: attention_ref(q, k, v, causal=True), sdpa, *work, dtype,
+                        b=b, s=s, sk=s, h=h, kv=kv, hd=hd,
                         count=expected_launches(cfg)["flash_attention"], per="prefill")
         route = flash_plan_for(q, k, v)
         check(route == expected_flash_route(dtype), f"flash {dtype} planned {route}")
         row.update(route=route, b2b_ms=b2b_ms(lambda i: flash_attention(q, k, v, causal=True)),
-                   b2b_library_ms=b2b_ms(lambda i: sdpa()))
+                   b2b_library_ms=b2b_ms(lambda i: sdpa()), **route_bound(*work, dtype, route))
+        if dtype == torch.float32:  # the CUDA-core route tf32x3 replaces, not counted
+            row["simt_b2b_ms"] = b2b_ms(lambda i: simt_flash(q, k, v))
         print_row(phase, "flash_attention", dtype,
                   f"B={b} S=Sk={s} H={h} KV={kv} hd={hd} causal", row)
         out["matmul"][dtype], out["rmsnorm"][dtype] = mm_rows, rms_rows
@@ -1149,10 +1216,11 @@ def lm_summary(rows, per: str) -> dict:
         key for key in ("b2b_ms", "b2b_library_ms") if rows[0].get(key) is not None)
     tot = {key: sum(r[key] * r["count"] for r in rows) for key in keys}
     if "route" in rows[0]:
-        names = MATMUL_ROUTES if "tile" in rows[0] else ROUTE_NAMES
+        names = (MATMUL_ROUTES if "tile" in rows[0] else FLASH_ROUTES if "hd" in rows[0]
+                 else SSD_ROUTES)
         tot["routes"] = {route: sum(r["count"] for r in rows if r["route"] == route)
                          for route in names}
-    for key in ("split_b2b_ms", "fma_bound_ms"):
+    for key in ("split_b2b_ms", "fma_bound_ms", "simt_b2b_ms"):
         if key in rows[0]:
             tot[key] = sum(r[key] * r["count"] for r in rows)
     tot["library_ms"] = (None if any(r["library_ms"] is None for r in rows)
@@ -1491,14 +1559,20 @@ def phase_h(gen):
         blocks16, chain16 = hybrid_block_errors(params, cfg, tokens, torch.bfloat16, logits,
                                                 plain16)
         params32 = cast_tree(params, torch.float32)
-        reset_counts()
-        out32 = api.prefill_logits(params32, cfg, batch, compute_dtype=torch.float32)
-        mm32 = {r: want["matmul"] if r == "tf32x3" else 0 for r in MATMUL_ROUTES}
-        check(matmul.launches_by_route == mm32, f"Zamba2 fp32 prefill: matmul routes "
-              f"{matmul.launches_by_route}, expected {mm32}")
+        walls32 = []
+        for _ in range(3):
+            reset_counts()
+            t0 = time.perf_counter()
+            out32 = api.prefill_logits(params32, cfg, batch, compute_dtype=torch.float32)
+            torch.cuda.synchronize()
+            walls32.append((time.perf_counter() - t0) * 1e3)
+            mm32 = {r: want["matmul"] if r == "tf32x3" else 0 for r in MATMUL_ROUTES}
+            check(matmul.launches_by_route == mm32, f"Zamba2 fp32 prefill: matmul routes "
+                  f"{matmul.launches_by_route}, expected {mm32}")
+            check_flash_routes("Zamba2 fp32 prefill", "tf32x3", want["flash_attention"])
+            check_ssd_routes("Zamba2 fp32 prefill", "simt", want["ssd"])
         got["float32_matmul_routes"] = dict(matmul.launches_by_route)
-        check_flash_routes("Zamba2 fp32 prefill", "simt", want["flash_attention"])
-        check_ssd_routes("Zamba2 fp32 prefill", "simt", want["ssd"])
+        got["float32_flash_attention_routes"] = dict(flash_attention.launches_by_route)
         plain32 = api.prefill_logits(params32, cfg, batch, compute_dtype=torch.float32,
                                      use_kernel=False)
         err32 = normalised_err(out32, plain32)
@@ -1524,6 +1598,9 @@ def phase_h(gen):
           f"{n_params(params) / 1e9:.3f} B params; cfg.param_count() says "
           f"{cfg.param_count() / 1e9:.3f} B): launches {got}  wall {wall:.3f} ms "
           f"(median of {len(walls)})  {tokens_n / wall * 1e3:.1f} tokens/s")
+    wall32 = statistics.median(walls32)
+    print(f"H float32 {HYBRID_ARCH} prefill: wall {wall32:.3f} ms (median of "
+          f"{', '.join(f'{w:.3f}' for w in walls32)})  {tokens_n / wall32 * 1e3:.1f} tokens/s")
     for (name, e16), (_, e32) in zip(blocks16[:cfg.shared_attn_every + 2], blocks32):
         print(f"H block {name:12s} kernel vs plain, same input: bf16 {e16:.3e}  fp32 {e32:.3e}")
     max16, max32 = max(e for _, e in blocks16), max(e for _, e in blocks32)
@@ -2023,17 +2100,18 @@ def check_launches(where: str, got: dict, matmul_routes: dict, rms: int, flash: 
     mm = {r: matmul_routes.get(r, 0) for r in MATMUL_ROUTES}
     check(got["matmul_routes"] == mm, f"{where}: matmul routes {got['matmul_routes']}, "
           f"expected {mm}")
-    fl = {r: flash if r == flash_route else 0 for r in ROUTE_NAMES}
+    fl = {r: flash if r == flash_route else 0 for r in FLASH_ROUTES}
     check(got["flash_attention_routes"] == fl, f"{where}: flash routes "
           f"{got['flash_attention_routes']}, expected {fl}")
 
 
-def on_route(dtype, n: int, simt: int = 0, small: int = 0) -> dict:
+def on_route(dtype, n: int, simt: int = 0, small: int = 0, small_simt: int = 0) -> dict:
     """``n`` products, ``small`` of them at M <= 64. In bf16 ``simt`` of
     them on simt (an N that is not a multiple of 8), the rest on wgmma; in
-    fp32 the small ones on simt, the rest on tf32x3."""
+    fp32 the small ones on stream but ``small_simt`` (an N that is not a
+    multiple of 4: TMA cannot read B) on simt, the rest on tf32x3."""
     if dtype == torch.float32:
-        return {"tf32x3": n - small, "simt": small}
+        return {"tf32x3": n - small, "stream": small - small_simt, "simt": small_simt}
     return {"wgmma": n - simt, "simt": simt}
 
 
@@ -2150,8 +2228,8 @@ def xlstm_launches(cfg, seq: int, dtype) -> tuple[dict, int]:
     """(matmul launches by route, RMSNorm launches) of one xLSTM forward over
     ``seq`` tokens (1: a decode tick): 6 products an mLSTM block (wi and wf
     have N = n_heads, not a multiple of 8: simt in bf16), 1 + seq an sLSTM
-    block (its recurrent product at every step, M = the batch), the head; 2
-    norms a block and ln_f."""
+    block (its recurrent product at every step, M = the batch: stream in
+    fp32), the head; 2 norms a block and ln_f."""
     n_s = sum(recurrent._is_slstm(cfg, i) for i in range(cfg.n_layers))
     n_m = cfg.n_layers - n_s
     n = 6 * n_m + (1 + seq) * n_s + 1
@@ -2243,8 +2321,8 @@ def phase_n() -> dict:
         check(chain <= SAME, f"N: the blocks chained differ from api.prefill_logits by {chain:.3e}")
         check(worst[1] <= TOL[dtype], f"N {name_of(dtype)}: block {worst[0]} kernel vs plain "
               f"{worst[1]:.3e}")
-        if dtype == torch.bfloat16:
-            paths[f"{XLSTM_ARCH} prefill"] = path_entry(got)
+        paths[f"{XLSTM_ARCH} prefill" + ("" if dtype == torch.bfloat16 else " fp32")] = \
+            path_entry(got)
         del p, logits, plain, xk, xp
 
     reqs = serving_requests(cfg)
@@ -2322,6 +2400,7 @@ def phase_o() -> dict:
                            device="cuda")
     le, ld = cfg.n_enc_layers, cfg.n_layers
     head_simt = int(cfg.vocab % 8 != 0)  # the tied head embed.T: N = 51865 takes simt
+    head_simt32 = int(cfg.vocab % 4 != 0)  # in fp32 too, where TMA cannot read it
     paths = {}
     for dtype in (torch.bfloat16, torch.float32):
         p = params if dtype == torch.bfloat16 else cast_tree(params, dtype)
@@ -2353,7 +2432,8 @@ def phase_o() -> dict:
 
             (last, cache), got_s, steps_ms = timed_counted(steps)
             step_ms = steps_ms / WHISPER_TOKENS
-            per_step = on_route(dtype, 8 * ld + 1, head_simt, small=8 * ld + 1)
+            per_step = on_route(dtype, 8 * ld + 1, head_simt, small=8 * ld + 1,
+                                small_simt=head_simt32)
             check_launches(f"O {name_of(dtype)} {WHISPER_TOKENS} decode steps", got_s,
                            {r: n * WHISPER_TOKENS for r, n in per_step.items()}, 0)
             # the launches of one step, read from the counters of the 448
@@ -2372,10 +2452,10 @@ def phase_o() -> dict:
               f"last logits against decode_train's at the last position {e_inc:.3e}")
         check(max(e_enc, e_dec, e_inc) <= tol, f"O {name_of(dtype)}: encode {e_enc:.3e}, "
               f"decode_train {e_dec:.3e}, incremental decode {e_inc:.3e} (tolerance {tol})")
-        if dtype == torch.bfloat16:
-            paths[f"{WHISPER_ARCH} encode"] = path_entry(got_e)
-            paths[f"{WHISPER_ARCH} decode_train"] = path_entry(got_d)
-            paths[f"{WHISPER_ARCH} decode step"] = path_entry(got_step)
+        tag = "" if dtype == torch.bfloat16 else " fp32"
+        paths[f"{WHISPER_ARCH} encode{tag}"] = path_entry(got_e)
+        paths[f"{WHISPER_ARCH} decode_train{tag}"] = path_entry(got_d)
+        paths[f"{WHISPER_ARCH} decode step{tag}"] = path_entry(got_step)
         del p, mem, logits, cache, last
     print(f"O peak memory {peak_gb():.2f} GB")
     del params
@@ -3943,6 +4023,18 @@ def matmul_floors(rows, hybrid_rows) -> None:
               f"{max(r['normalised_err'] for r in by[torch.float32]):.3e}")
         check(r32 <= FP32_FLOOR, f"{arch}: fp32 matmul at {r32:.2f}x torch.matmul back to "
               f"back at prefill (floor {FP32_FLOOR}x)")
+        tick = lm_summary(by[torch.float32], "decode tick")
+        r_lib, r_simt = (tick["b2b_ms"] / tick["b2b_library_ms"],
+                         tick["b2b_ms"] / tick["simt_b2b_ms"])
+        print(f"matmul {arch} fp32 decode tick: back to back {tick['b2b_ms']:.3f} ms against "
+              f"torch.matmul {tick['b2b_library_ms']:.3f} ms ({r_lib:.2f}x) and the simt route "
+              f"{tick['simt_b2b_ms']:.3f} ms ({r_simt:.2f}x); bound {tick['bound_ms']:.3f} ms "
+              f"({tick['bound_by']}), {tick['bound_ms'] / tick['b2b_ms']:.1%} of it; single "
+              f"calls {tick['ms']:.3f} ms against {tick['library_ms']:.3f} ms; routes "
+              f"{tick['routes']}")
+        check(r_lib <= FP32_TICK_FLOOR and r_simt <= FP32_SIMT_FLOOR,
+              f"{arch}: fp32 tick products at {r_lib:.2f}x torch.matmul (floor "
+              f"{FP32_TICK_FLOOR}x) and {r_simt:.2f}x simt (floor {FP32_SIMT_FLOOR}x) back to back")
         pre = lm_summary(by[torch.bfloat16], "prefill")
         tick = lm_summary(by[torch.bfloat16], "decode tick")
         r_pre, r_tick = pre["ms"] / pre["library_ms"], tick["b2b_ms"] / tick["b2b_library_ms"]
@@ -3959,8 +4051,21 @@ def matmul_floors(rows, hybrid_rows) -> None:
 def flash_floor(rows, hybrid_rows) -> None:
     """The redesigned flash attention against SDPA in this run, bf16: the sum
     over one prefill of back-to-back calls at most FLASH_FLOORS[arch] x
-    SDPA's."""
+    SDPA's; fp32 (tf32x3, TF32 off): at most FP32_FLASH_FLOOR x SDPA's and
+    FP32_SIMT_FLOOR x the simt route's."""
+    check_tf32_off()
     for arch, by in ((LM_ARCH, rows), (HYBRID_ARCH, hybrid_rows)):
+        fl = lm_summary(by["flash_attention"][torch.float32], "prefill")
+        r_lib, r_simt = fl["b2b_ms"] / fl["b2b_library_ms"], fl["b2b_ms"] / fl["simt_b2b_ms"]
+        print(f"flash_attention {arch} fp32 prefill: back to back {fl['b2b_ms']:.3f} ms against "
+              f"SDPA {fl['b2b_library_ms']:.3f} ms ({r_lib:.2f}x) and the simt route "
+              f"{fl['simt_b2b_ms']:.3f} ms ({r_simt:.2f}x); bound {fl['bound_ms']:.3f} ms (three "
+              f"TF32 products), {fl['bound_ms'] / fl['b2b_ms']:.1%} of it; FMA bound "
+              f"{fl['fma_bound_ms']:.3f} ms; single calls {fl['ms']:.3f} ms against "
+              f"{fl['library_ms']:.3f} ms; routes {fl['routes']}")
+        check(r_lib <= FP32_FLASH_FLOOR and r_simt <= FP32_SIMT_FLOOR,
+              f"{arch}: fp32 flash attention at {r_lib:.2f}x SDPA (floor {FP32_FLASH_FLOOR}x) "
+              f"and {r_simt:.2f}x simt (floor {FP32_SIMT_FLOOR}x) back to back")
         fl = lm_summary(by["flash_attention"][torch.bfloat16], "prefill")
         ratio = fl["b2b_ms"] / fl["b2b_library_ms"]
         print(f"flash_attention {arch} bf16 prefill: {fl['ms']:.3f} ms of single calls against "
@@ -4018,8 +4123,11 @@ def lm_entries(rows, launches, serving, hybrid_rows, hybrid_launches, hybrid_ser
             out["serving_launches_by_route"] = serve["matmul_routes"]
             if "float32_matmul_routes" in prefill:
                 out["float32"]["launches_by_route"] = prefill["float32_matmul_routes"]
+            out["float32"]["decode_tick"] = lm_summary(by[torch.float32], "decode tick")
         if name in ("flash_attention", "ssd"):
             out["launches_by_route"] = prefill[f"{name}_routes"]
+            if f"float32_{name}_routes" in prefill:
+                out["float32"]["launches_by_route"] = prefill[f"float32_{name}_routes"]
         return out
 
     entries = []

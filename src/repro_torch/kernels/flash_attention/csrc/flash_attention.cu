@@ -55,14 +55,47 @@
 //       columns past hd masked.
 //    Not done here: ping-pong between the warpgroups, the softmax
 //    overlapped with the next Q K^T, persistent blocks, N = 80 for PV.
-//  * simt (fp32, and bf16 shapes TMA cannot take): the CUDA-core kernel of
+//  * tf32x3 (fp32, hd % 8 == 0 and hd <= 128, q, k, v at 16-byte-aligned
+//    addresses). In fp32 the same prefills are bound by operations: 6.4
+//    and 5.4 GFLOP of fp32-accurate work are 96 and 81 us at the 67
+//    TFLOP/s of FMA, and one TF32 product misses the fp32 tolerance (about
+//    4e-4 normalised). Split into TF32 halves, x = x_hi + x_lo, the three
+//    products a_lo b_hi + a_hi b_lo + a_hi b_hi carry an fp32 product's
+//    error at 495 / 3 = 165 TFLOP/s (as the matmul's tf32x3 route does):
+//    39 and 33 us. Design:
+//     - a split pass (hopper::split_kernel, one launch) writes K_hi, K_lo
+//       as (B, Sk, KV, hd) and V^T_hi, V^T_lo as (B, KV, hd, Skp), keys
+//       zero-padded to whole tiles, into scratch the wrapper allocates:
+//       .tf32 wgmma takes no transpose, so PV's B operand (keys along K)
+//       is V^T. Q is loaded raw and split in shared memory by the
+//       warpgroup (in place for Q_hi, beside it for Q_lo);
+//     - one block per (b, h, 64 query rows), the blocks of one KV head
+//       together (its split K and V^T read once into L2), heaviest query
+//       blocks first, one consumer warpgroup and one producer warp: split
+//       fp32 tiles are four times bf16's, so at hd 128 Q_hi + Q_lo (64
+//       KB), one 64-key K_hi + K_lo tile (64 KB), one V^T_hi + V^T_lo tile
+//       (64 KB) and P_hi + P_lo (32 KB) fill 224 of the 227 KB: no second
+//       warpgroup, no second stage. Instead K and V^T have a buffer and a full/empty barrier
+//       pair each, so K of tile j + 1 loads during tile j's softmax and
+//       PV, V^T of tile j + 1 during tile j + 1's Q K^T;
+//     - S = Q K^T: three m64n64k8 tf32 wgmmas a k8 of hd (hd in whole
+//       32-wide atoms, TMA zero-filling past hd) into a fresh accumulator:
+//       at hd <= 128 one promotion window (hopper::TF32X3_PROMOTE);
+//     - the online softmax of the wgmma route on the fragment; P =
+//       exp2(s - m) split into TF32 halves and written to shared memory
+//       in the 128-byte-swizzled K-major layout TMA gives the A tiles;
+//     - PV: three m64nNk8 wgmmas a k8 of keys (N = hd padded to 64 or
+//       128; V^T's rows past hd zero-filled) into a fresh accumulator per
+//       tile, then added to the rescaled fp32 O in registers: the tensor
+//       cores' sum truncates, so each tile's sum is promoted;
+//     - the epilogue of the wgmma route, in fp32 pairs.
+//  * simt (fp32 and bf16 shapes TMA cannot take): the CUDA-core kernel of
 //    the port's first version. One block of 256 threads per (b, h, 64
 //    queries); Q, K and V tiles of 64 rows staged in shared memory as fp32,
 //    read from the KV head by index, bounds-checked, any hd up to 256;
 //    each thread owns 4 rows x 4 keys of the score tile and 4 rows x hd/16
 //    output columns in registers, P goes through shared memory. Its ceiling
-//    is the 67 TFLOP/s fp32 rate; fp32 stays here because the tensor cores
-//    would miss the fp32 tolerance.
+//    is the 67 TFLOP/s fp32 rate.
 //
 // The kernels allocate nothing and launch on the stream they are given;
 // the entry point returns cudaGetLastError() (or the error of a refused
@@ -606,6 +639,320 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bat
 
 }  // namespace wg
 
+// ---------------------------------------------------------------------------
+// tf32x3 route: fp32 split into TF32 halves, three tensor-core products
+// ---------------------------------------------------------------------------
+
+namespace tf {
+
+using hopper::ATOM_F32;             // fp32 values in one 128-byte swizzle row
+constexpr int BQ = 64;              // query rows per block: one consumer warpgroup
+constexpr int BK = 64;              // keys per K and V^T tile: the S wgmma's N, PV's depth
+constexpr int KEY_ATOMS = BK / ATOM_F32;
+constexpr int THREADS = 128 + 32;   // the warpgroup and one producer warp
+constexpr uint32_t ROW_BYTES = 128;  // one swizzle row: 32 fp32
+
+// ATOMS: 32-wide atoms of hd (hd padded to whole atoms, TMA zero-filling
+// the rest); NV: PV's N, hd padded to 64 or 128 (V^T's rows past hd are
+// zero-filled). Each tile is written split: a hi and a lo copy.
+template <int ATOMS_, int NV_>
+struct Cfg {
+  static constexpr int ATOMS = ATOMS_, NV = NV_;
+  static constexpr int Q_ATOM = BQ * ROW_BYTES;            // 64 rows x 32 hd: 8 KB
+  static constexpr int K_ATOM = BK * ROW_BYTES;            // 64 keys x 32 hd: 8 KB
+  static constexpr int V_ATOM = NV * ROW_BYTES;            // NV rows of hd x 32 keys
+  static constexpr int P_ATOM = BQ * ROW_BYTES;            // 64 rows x 32 keys
+  static constexpr int Q_BYTES = ATOMS * Q_ATOM, K_BYTES = ATOMS * K_ATOM;
+  static constexpr int V_BYTES = KEY_ATOMS * V_ATOM, P_BYTES = KEY_ATOMS * P_ATOM;
+  // Q_hi, Q_lo, K_hi, K_lo, V^T_hi, V^T_lo, P_hi, P_lo, 1024-byte aligned
+  // inside the block's window, then the barriers (Q's, K's full and empty,
+  // V's full and empty)
+  static constexpr int SMEM = 1024 + 2 * (Q_BYTES + K_BYTES + V_BYTES + P_BYTES) + 5 * 8;
+  static_assert(NV == 64 || NV == 128, "m64n64k8 or m64n128k8");
+  static_assert(ATOMS * ATOM_F32 <= NV, "hd fits PV's N");
+  static_assert(SMEM <= 232448, "fits the block's shared memory");
+};
+
+// The split operands: K_hi, K_lo (B, Sk, KV, hd) and V^T_hi, V^T_lo (B, KV,
+// hd, Skp), Skp = Sk padded to whole key tiles (zero past Sk).
+struct Split {
+  float *k_hi, *k_lo, *v_hi, *v_lo;
+};
+
+template <typename CF>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_tf32x3(const __grid_constant__ CUtensorMap map_q,
+             const __grid_constant__ CUtensorMap map_khi,
+             const __grid_constant__ CUtensorMap map_klo,
+             const __grid_constant__ CUtensorMap map_vhi,
+             const __grid_constant__ CUtensorMap map_vlo, float* __restrict__ o, const wg::Geo g) {
+  using namespace hopper;
+  constexpr int ATOMS = CF::ATOMS, NV = CF::NV;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sqh = (raw + 1023) & ~1023u;
+  uint8_t* const gq = smem_raw + (sqh - raw);  // the same address, generic
+  const uint32_t sql = sqh + CF::Q_BYTES;
+  const uint32_t skh = sql + CF::Q_BYTES, skl = skh + CF::K_BYTES;
+  const uint32_t svh = skl + CF::K_BYTES, svl = svh + CF::V_BYTES;
+  const uint32_t sph = svl + CF::V_BYTES, spl = sph + CF::P_BYTES;
+  const uint32_t q_bar = spl + CF::P_BYTES;
+  const uint32_t full_k = q_bar + 8, empty_k = q_bar + 16, full_v = q_bar + 24,
+                 empty_v = q_bar + 32;
+
+  // Every block of one KV head runs before the next head's: its query heads
+  // fastest, then its query blocks, heaviest first. The split K and V^T of
+  // a head (four times bf16's bytes: 655 KB at Zamba2's hd 80 and 512
+  // keys) are then read from device memory once and shared in L2 by its
+  // blocks, where walking the heads fastest re-read them for every query
+  // block once the heads in flight outgrew the 50 MB L2 (no GQA: 84 MB).
+  const int per_head = g.h / g.kv, q_blocks = (g.s + BQ - 1) / BQ;
+  const int per_kv = per_head * q_blocks;
+  const int kv_lin = blockIdx.x / per_kv, rest = blockIdx.x - kv_lin * per_kv;
+  const int b = kv_lin / g.kv, grp = kv_lin - b * g.kv;
+  const int h = grp * per_head + rest % per_head;
+  const int q0 = (q_blocks - 1 - rest / per_head) * BQ;
+  const int shift = g.sk - g.s;  // position of query 0 in the key timeline
+  // The keys the block's queries can see, [t_lo, t_hi), in tiles from t_lo:
+  // every tile holds a key some row of the block sees.
+  const int w_lo = q0 + shift, w_hi = min(q0 + BQ, g.s) - 1 + shift;
+  const int t_hi = g.causal ? min(g.sk, w_hi + 1) : g.sk;
+  const int t_lo = g.window > 0 ? max(0, w_lo - g.window + 1) / BK * BK : 0;
+  const int n_tiles = t_hi > t_lo ? (t_hi - t_lo + BK - 1) / BK : 0;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(q_bar, 1);
+    mbar_init(full_k, 1);      // the producer's expect_tx
+    mbar_init(empty_k, 128);   // every consumer thread
+    mbar_init(full_v, 1);
+    mbar_init(empty_v, 128);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= 128) {  // the producer warp; one thread issues
+    if (tid == 128) {
+      // Boxes count whole on the barriers, their zero fill included.
+      mbar_arrive_expect_tx(q_bar, CF::Q_BYTES);
+      for (int a = 0; a < ATOMS; ++a)
+        tma_load_4d(sqh + a * CF::Q_ATOM, &map_q, q_bar, a * ATOM_F32, h, q0, b);
+      // One K and one V^T buffer: K of tile it + 1 loads while tile it's
+      // softmax and PV run, V^T of tile it + 1 while its Q K^T runs.
+      for (int it = 0; it < n_tiles; ++it) {
+        const int t0 = t_lo + it * BK;
+        const uint32_t parity = (it & 1) ^ 1;
+        mbar_wait(empty_k, parity);
+        mbar_arrive_expect_tx(full_k, 2 * CF::K_BYTES);
+        for (int a = 0; a < ATOMS; ++a) {
+          tma_load_4d(skh + a * CF::K_ATOM, &map_khi, full_k, a * ATOM_F32, grp, t0, b);
+          tma_load_4d(skl + a * CF::K_ATOM, &map_klo, full_k, a * ATOM_F32, grp, t0, b);
+        }
+        mbar_wait(empty_v, parity);
+        mbar_arrive_expect_tx(full_v, 2 * CF::V_BYTES);
+        for (int a = 0; a < KEY_ATOMS; ++a) {
+          tma_load_4d(svh + a * CF::V_ATOM, &map_vhi, full_v, t0 + a * ATOM_F32, 0, grp, b);
+          tma_load_4d(svl + a * CF::V_ATOM, &map_vlo, full_v, t0 + a * ATOM_F32, 0, grp, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // Q arrives raw; the warpgroup splits it in place (Q_hi) and beside it
+  // (Q_lo), element by element: the swizzle moves both copies alike.
+  mbar_wait(q_bar, 0);
+  {
+    float4* qh = reinterpret_cast<float4*>(gq);
+    float4* ql = reinterpret_cast<float4*>(gq + CF::Q_BYTES);
+    for (int i = tid; i < CF::Q_BYTES / 16; i += 128) {
+      float4 x = qh[i], lo;
+      split_tf32(x.x, x.x, lo.x);
+      split_tf32(x.y, x.y, lo.y);
+      split_tf32(x.z, x.z, lo.z);
+      split_tf32(x.w, x.w, lo.w);
+      qh[i] = x;
+      ql[i] = lo;
+    }
+  }
+  fence_proxy_async();  // the writes, before the wgmmas read them
+  named_sync(1, 128);
+
+  // Fragment of m64nX: warp w holds rows 16w + lane/4 (+ 8), columns
+  // 8j + 2 (lane % 4) (+ 1) in d[4j + {0, 1}] (+ {2, 3}).
+  const int warp = tid / 32, lane = tid % 32;
+  const int rloc = warp * 16 + lane / 4;  // this thread's rows in the block: rloc, rloc + 8
+  const int row0 = q0 + rloc;
+  const int col0 = 2 * (lane % 4);
+  float acc[NV / 2], pv[NV / 2], s[BK / 2];
+#pragma unroll
+  for (int i = 0; i < NV / 2; ++i) acc[i] = pv[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // l: this thread's partial sums
+  fence_operands(acc);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int t0 = t_lo + it * BK;
+    // S = Q K^T: three TF32 products a k8 over hd (at most 128: one
+    // promotion window, TF32X3_PROMOTE), into a fresh accumulator.
+    mbar_wait(full_k, it & 1);
+    fence_operands(s);
+    wgmma_fence();
+#pragma unroll
+    for (int a = 0; a < ATOMS; ++a)
+      tf32x3_stage<BK, ATOM_F32>(s, sqh + a * CF::Q_ATOM, sql + a * CF::Q_ATOM,
+                                 skh + a * CF::K_ATOM, skl + a * CF::K_ATOM, a == 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(s);
+    mbar_arrive(empty_k);
+
+    // The online softmax, as the wgmma route's, in log2 units.
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] *= g.scale_log2;
+    const bool edge = t0 + BK > g.sk || (g.causal && t0 + BK - 1 > w_lo) ||
+                      (g.window > 0 && t0 <= w_hi - g.window);
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int pos = row0 + 8 * hh + shift;
+#pragma unroll
+          for (int bb = 0; bb < 2; ++bb) {
+            const int t = t0 + 8 * j + col0 + bb;
+            const bool ok = t < g.sk && (!g.causal || t <= pos) &&
+                            (g.window <= 0 || t > pos - g.window);
+            if (!ok) s[4 * j + 2 * hh + bb] = -INFINITY;
+          }
+        }
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        mx[hh] = fmaxf(mx[hh], fmaxf(s[4 * j + 2 * hh], s[4 * j + 2 * hh + 1]));
+    float alpha[2], mu[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {  // the 4 lanes of a row
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      mu[hh] = mx[hh] == -INFINITY ? 0.f : mx[hh];  // a row with no key yet: p = 0
+      alpha[hh] = exp2f(m[hh] - mu[hh]);
+      m[hh] = mx[hh];
+    }
+    // P = exp2(s - mu), split into TF32 halves and written as PV's A: two
+    // 32-key atoms of 64 rows, 128-byte swizzled (16-byte chunk c of row r
+    // at c ^ (r % 8)), as TMA would have written them.
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float p0 = exp2f(s[4 * j + 2 * hh] - mu[hh]);
+        const float p1 = exp2f(s[4 * j + 2 * hh + 1] - mu[hh]);
+        rs[hh] += p0 + p1;
+        const int r = rloc + 8 * hh, c = 8 * (j % 4) + col0;  // c: the column in the atom
+        const uint32_t off = (j / 4) * CF::P_ATOM + r * ROW_BYTES +
+                             (((c / 4) ^ (r % 8)) * 16) + (c % 4) * 4;
+        float2 hi, lo;
+        split_tf32(p0, hi.x, lo.x);
+        split_tf32(p1, hi.y, lo.y);
+        *reinterpret_cast<float2*>(gq + (sph - sqh) + off) = hi;
+        *reinterpret_cast<float2*>(gq + (spl - sqh) + off) = lo;
+      }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) l[hh] = l[hh] * alpha[hh] + rs[hh];
+#pragma unroll
+    for (int j = 0; j < NV / 8; ++j) {
+      acc[4 * j] *= alpha[0];
+      acc[4 * j + 1] *= alpha[0];
+      acc[4 * j + 2] *= alpha[1];
+      acc[4 * j + 3] *= alpha[1];
+    }
+    fence_proxy_async();  // P's writes, before the wgmmas read them
+    named_sync(1, 128);
+
+    // PV: the tile's sum in a fresh tensor-core accumulator (the tensor
+    // cores' additions truncate), then added to the fp32 O in registers.
+    mbar_wait(full_v, it & 1);
+    fence_operands(pv);
+    wgmma_fence();
+#pragma unroll
+    for (int a = 0; a < KEY_ATOMS; ++a)
+      tf32x3_stage<NV, ATOM_F32>(pv, sph + a * CF::P_ATOM, spl + a * CF::P_ATOM,
+                                 svh + a * CF::V_ATOM, svl + a * CF::V_ATOM, a == 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(pv);
+    mbar_arrive(empty_v);
+#pragma unroll
+    for (int i = 0; i < NV / 2; ++i) acc[i] += pv[i];
+  }
+
+  // Epilogue: the row sums across the 4 lanes, 1 / max(l, 1e-30), fp32
+  // pairs straight from the fragment; rows past S and columns past hd masked.
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float sum = l[hh];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float inv = 1.f / fmaxf(sum, 1e-30f);
+    const int row = row0 + 8 * hh;
+    if (row >= g.s) continue;
+    float* orow = o + (((size_t)b * g.s + row) * g.h + h) * g.hd;
+#pragma unroll
+    for (int j = 0; j < NV / 8; ++j) {
+      const int col = 8 * j + col0;  // even, and hd % 8 == 0: col + 1 < hd too
+      if (col < g.hd)
+        *reinterpret_cast<float2*>(orow + col) =
+            make_float2(acc[4 * j + 2 * hh] * inv, acc[4 * j + 2 * hh + 1] * inv);
+    }
+  }
+}
+
+// q (B, S, H, hd), k, v (B, Sk, KV, hd) fp32; w: the split operands
+// (16-byte aligned), written here first by one split launch (K copied, V
+// transposed). The split is queued before the tensor maps are encoded, so
+// the card starts while the host encodes.
+template <typename CF>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, const Split& w,
+                   int batch, const wg::Geo& g, int device, cudaStream_t stream) {
+  const long long blocks = (long long)batch * g.h * ((g.s + BQ - 1) / BQ);
+  const int skp = (g.sk + BK - 1) / BK * BK;
+  if (blocks > 0x7fffffffLL ||
+      ((uintptr_t)w.k_hi | (uintptr_t)w.k_lo | (uintptr_t)w.v_hi | (uintptr_t)w.v_lo) % 16)
+    return cudaErrorInvalidValue;
+  const int row = g.kv * g.hd;  // k and v seen as (B, Sk, KV * hd)
+  cudaError_t e = hopper::split_launch(
+      hopper::split_job(k, w.k_hi, w.k_lo, g.sk, row, row, false), batch,
+      hopper::split_job(v, w.v_hi, w.v_lo, g.sk, row, skp, true), batch, stream);
+  if (e != cudaSuccess) return e;
+  CUtensorMap mq, mkh, mkl, mvh, mvl;
+  if (!hopper::encode_4d_f32(&mq, q, batch, g.s, g.h, g.hd, 1, BQ) ||
+      !hopper::encode_4d_f32(&mkh, w.k_hi, batch, g.sk, g.kv, g.hd, 1, BK) ||
+      !hopper::encode_4d_f32(&mkl, w.k_lo, batch, g.sk, g.kv, g.hd, 1, BK) ||
+      !hopper::encode_4d_f32(&mvh, w.v_hi, batch, g.kv, g.hd, skp, CF::NV, 1) ||
+      !hopper::encode_4d_f32(&mvl, w.v_lo, batch, g.kv, g.hd, skp, CF::NV, 1))
+    return cudaErrorInvalidValue;
+  // Above 48 KB of dynamic shared memory a kernel must opt in, once per device.
+  static std::atomic<unsigned long long> ready{0};
+  const unsigned long long bit = 1ull << (device & 63);
+  if (!(ready.load(std::memory_order_relaxed) & bit)) {
+    e = cudaFuncSetAttribute(flash_tf32x3<CF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             CF::SMEM);
+    if (e != cudaSuccess) return e;
+    ready.fetch_or(bit);
+  }
+  flash_tf32x3<CF><<<(unsigned)blocks, THREADS, CF::SMEM, stream>>>(
+      mq, mkh, mkl, mvh, mvl, static_cast<float*>(o), g);
+  return cudaGetLastError();
+}
+
+}  // namespace tf
+
 cudaError_t on_device(int device) {
   int current = -1;
   cudaError_t e = cudaGetDevice(&current);
@@ -619,8 +966,9 @@ extern "C" {
 
 // q, o (B, S, H, hd); k, v (B, Sk, KV, hd), contiguous; H a multiple of KV.
 // window <= 0: no window. dtype: 0 = float32, 1 = bfloat16. route: 0 =
-// simt, 1 = wgmma (bf16, hd % 8 == 0, hd <= 128, q, k, v 16-byte aligned).
-// Returns a cudaError_t (0 on success).
+// simt, 1 = wgmma (bf16, hd % 8 == 0, hd <= 128, q, k, v 16-byte aligned);
+// the tf32x3 route has its own entry point. Returns a cudaError_t (0 on
+// success).
 int repro_flash_attention(const void* q, const void* k, const void* v, void* o, int batch,
                           int s, int sk, int h, int kv, int hd, int causal, int window,
                           float scale, int dtype, int route, int device,
@@ -644,6 +992,33 @@ int repro_flash_attention(const void* q, const void* k, const void* v, void* o, 
   // hd padded to whole atoms picks the configuration
   return (int)(hd <= 64 ? wg::launch<wg::Cfg<64>>(q, k, v, o, batch, g, device, st)
                         : wg::launch<wg::Cfg<128>>(q, k, v, o, batch, g, device, st));
+}
+
+// The tf32x3 route: q, o (B, S, H, hd), k, v (B, Sk, KV, hd) fp32,
+// contiguous, hd % 8 == 0, hd <= 128, q 16-byte aligned; k_hi, k_lo (B, Sk,
+// KV, hd) and v_hi, v_lo (B, KV, hd, Skp), Skp = Sk rounded up to a
+// multiple of 64, 16-byte aligned: scratch the call fills with the split
+// K and V^T. window <= 0: no window. Returns a cudaError_t (0 on success).
+int repro_flash_attention_tf32x3(const void* q, const void* k, const void* v, void* o,
+                                 void* k_hi, void* k_lo, void* v_hi, void* v_lo, int batch,
+                                 int s, int sk, int h, int kv, int hd, int causal, int window,
+                                 float scale, int device, void* stream) {
+  cudaError_t e = on_device(device);
+  if (e != cudaSuccess) return (int)e;
+  if (kv < 1 || h % kv != 0 || hd % 8 || hd < 8 || hd > 128 || (uintptr_t)q % 16 ||
+      (uintptr_t)o % 8)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const tf::Split w{static_cast<float*>(k_hi), static_cast<float*>(k_lo),
+                    static_cast<float*>(v_hi), static_cast<float*>(v_lo)};
+  const wg::Geo g{s, sk, h, kv, hd, window, causal, scale * wg::LOG2E};
+  // hd in whole 32-wide atoms picks the configuration
+  switch ((hd + 31) / 32) {
+    case 1: return (int)tf::launch<tf::Cfg<1, 64>>(q, k, v, o, w, batch, g, device, st);
+    case 2: return (int)tf::launch<tf::Cfg<2, 64>>(q, k, v, o, w, batch, g, device, st);
+    case 3: return (int)tf::launch<tf::Cfg<3, 128>>(q, k, v, o, w, batch, g, device, st);
+    default: return (int)tf::launch<tf::Cfg<4, 128>>(q, k, v, o, w, batch, g, device, st);
+  }
 }
 
 const char* repro_cuda_error_string(int err) {

@@ -10,7 +10,7 @@ which is the same when S = Sk. A CUDA tensor launches the CUDA kernel (or
 raises) on the route ``flash_attention.plan_for`` picks; a CPU tensor takes
 the plain version ``attention_ref``. ``flash_attention.launches`` counts
 kernel launches, one per call, and ``flash_attention.launches_by_route``
-splits them by route (``wgmma``, ``simt``).
+splits them by route (``wgmma``, ``tf32x3``, ``simt``).
 A fake tensor (the dry run's) takes the op's fake implementation
 (``is_fake``): nothing launches, and the op's FLOP formula counts
 4·B·H·S·Sk·hd, the full square of scores, as the plain attention's two

@@ -1,12 +1,14 @@
-// Hopper building blocks shared by the port's tensor-core kernels (the
-// matmul's, the conv's, the flash attention's and the SSD's wgmma routes,
-// and the matmul's and the conv's fp32 tf32x3 routes), in inline PTX for
-// sm_90a: mbarriers, TMA tile loads (2-D and 4-D), the m64n128k16 and
-// m64n64k16 bf16 wgmmas and the m64n128k8 and m64n64k8 tf32 ones (A from
-// shared memory) with their shared-memory descriptors,
-// the proxy fence and a named barrier; the split of fp32 into two TF32
-// halves and the pass that writes split (and transposed) operands; and, on
-// the host, the bf16 and fp32 tensor-map encoders.
+// Hopper building blocks shared by the port's TMA kernels (the matmul's,
+// the conv's, the flash attention's and the SSD's wgmma routes, the fp32
+// tf32x3 routes of the matmul, the conv and flash attention, and the
+// matmul's fp32 stream route), in inline PTX for sm_90a: mbarriers, TMA
+// tile loads (2-D and 4-D), the m64n128k16 and m64n64k16 bf16 wgmmas and
+// the m64n128k8 and m64n64k8 tf32 ones (A from shared memory) with their
+// shared-memory descriptors, the proxy fence and a named barrier; the
+// split of fp32 into two TF32 halves and the pass that writes split (and
+// transposed) operands; and, on the host, the bf16 and fp32 tensor-map
+// encoders (128-byte swizzled for the wgmmas, unswizzled for the stream
+// route's CUDA-core reads).
 // kernels/_build.py passes this directory to nvcc with -I and hashes it into
 // every kernel's cache key.
 #pragma once
@@ -539,16 +541,18 @@ inline EncodeTiled encode_tiled() {
 }
 
 // A tensor of `type` and `rank` dimensions (innermost first, `strides` in
-// bytes for dimensions 1..rank-1) in boxes of `box`, 128-byte swizzled;
-// reads outside the tensor give zeros. box[0] must fill one swizzle row.
+// bytes for dimensions 1..rank-1) in boxes of `box`, 128-byte swizzled
+// (box[0] must then fill one swizzle row) or, with `swizzle` NONE, stored
+// row after row as they are in memory; reads outside the tensor give zeros.
 inline bool encode_swizzled(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int rank,
                             const cuuint64_t* dims, const cuuint64_t* strides,
-                            const cuuint32_t* box) {
+                            const cuuint32_t* box,
+                            CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
   return fn(map, type, rank, const_cast<void*>(ptr), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -593,8 +597,23 @@ inline bool encode_2d_f32(CUtensorMap* map, const void* ptr, int rows, int cols,
   return encode_f32(map, ptr, 2, dims, strides, box);
 }
 
+// A row-major fp32 (rows, cols) matrix, cols % 4 == 0, in unswizzled boxes
+// of box_rows x box_cols (box_cols % 4 == 0, both <= 256): each box lands
+// in shared memory as a row-major [box_rows][box_cols] array, the stream
+// route's tiles of A and B, read by the CUDA cores.
+inline bool encode_2d_f32_rows(CUtensorMap* map, const void* ptr, int rows, int cols,
+                               int box_rows, int box_cols) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  return encode_swizzled(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ptr, 2, dims, strides, box,
+                         CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
 // An fp32 (d3, d2, d1, d0) array, d0 % 4 == 0 contiguous, in boxes of
-// 32 x b1 x b2 x 1: the conv's NHWC input halves.
+// 32 x b1 x b2 x 1: the conv's NHWC input halves; the flash route's q as
+// (B, S, H, hd), its K halves as (B, Sk, KV, hd) and its V^T halves as
+// (B, KV, hd, Sk padded).
 inline bool encode_4d_f32(CUtensorMap* map, const void* ptr, int d3, int d2, int d1, int d0,
                           int b1, int b2) {
   const cuuint64_t dims[4] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2, (cuuint64_t)d3};

@@ -53,21 +53,45 @@
 //    m64n128k8 products per k8 into one tensor-core accumulator, added to
 //    an fp32 sum in registers every 4 stages (the tensor cores' additions
 //    truncate: hopper::TF32X3_PROMOTE).
-//  * simt (fp32 with M <= 64, and bf16 operands TMA cannot take): the
-//    CUDA-core kernel of the port's first version. 128 x 128 tiles (256
-//    threads, an 8 x 8 block of sums each) for M > 64, 16 x 128 for M <=
-//    64; tiles of A (transposed) and B staged through shared memory, the
-//    next K step loaded into registers while the current one is computed.
-//    Its ceiling is the 67 TFLOP/s fp32 rate. fp32 at M <= 64 (the decode
-//    tick) stays here: it is bound by reading B once, which the split pass
-//    would triple. fp32 reaches the 128 x 128 tile only from
-//    tools/tf32x3_probe.py, which times tf32x3 against it.
+//  * stream (fp32 with M <= 64 that TMA can read: K % 4 == 0, N % 4 == 0,
+//    both operands 16-byte aligned): the fp32 decode tick. It computes
+//    what simt computes, fp32 FMA in k order with no TF32 anywhere, so its
+//    error is an fp32 product's. Bounds: reading B once, 4 K N bytes at
+//    3.35 TB/s, against 2 M K N operations at 67 TFLOP/s: bytes bound it
+//    up to M = 40 (the tick, M = 4, does a tenth of the operations the
+//    bytes would allow), the FMA rate from there to 64. So the design
+//    streams B: one producer warp keeps a ring of 4 stages full with TMA
+//    loads (16-byte-aligned rows, unswizzled) of a 32 (k) x 128 tile of B
+//    and the block's MT x 32 slice of A (MT = M padded to 4, 8, 16, 32 or
+//    64; the rows past M, the columns past N and the k rows past K are
+//    zero-filled), full and empty mbarriers a stage; 8 consumer warps read
+//    each row of B as 16-byte vectors (a warp's 32 lanes, 512 contiguous
+//    bytes: 4 columns a lane) and A as broadcast 16-byte reads (4 k of a
+//    row), and each thread sums RT = 4 or 8 rows x its 4 columns in
+//    registers. At small M the warps split the stage's k rows (8 warps x 4
+//    rows at MT <= 8; at MT = 64 the 8 warps split M instead), and their
+//    partial tiles meet in the freed ring and are added in a fixed order.
+//    A stage is 17-24 KB, a block 70-99 KB: two blocks an SM keep 128 KB
+//    of B in flight an SM, four times the 3.35 TB/s x ~1.3 us / 132 SMs =
+//    32 KB that hides the memory's latency. K is split (below) until the grid
+//    has two blocks an SM. A is re-read from L2 by each column tile; at
+//    M = 4 it is a 4 / 128 share of B's bytes.
+//  * simt (fp32 with M <= 64 that TMA cannot read, and bf16 operands TMA
+//    cannot take): the CUDA-core kernel of the port's first version. 128 x
+//    128 tiles (256 threads, an 8 x 8 block of sums each) for M > 64, 16 x
+//    128 for M <= 64; tiles of A (transposed) and B staged through shared
+//    memory, the next K step loaded into registers while the current one
+//    is computed. Its ceiling is the 67 TFLOP/s fp32 rate; at the tick it
+//    loads B as 4-byte values with one 32-deep step in flight. fp32
+//    reaches the 128 x 128 tile only from tools/tf32x3_probe.py, which
+//    times tf32x3 against it.
 //
 // Split K (every route). When the tiles of C give fewer than two blocks
 // per SM (decode, the narrow K/V, B/C and dt projections at prefill), K is
-// cut into chunks of at least 256, each block writes an fp32 partial tile
-// into a workspace the wrapper allocates, and a second kernel adds the
-// partials in a fixed order and casts, so results are deterministic.
+// cut into chunks of at least 256 (whole K steps), each block writes an
+// fp32 partial tile into a workspace the wrapper allocates, and a second
+// kernel adds the partials in a fixed order and casts, so results are
+// deterministic.
 //
 // The kernels allocate nothing and launch on the stream they are given;
 // the entry point returns cudaGetLastError() (or the error of a refused
@@ -552,6 +576,194 @@ cudaError_t launch(const void* a, const void* b, void* c, const Split& w, float*
 
 }  // namespace tf
 
+// ---------------------------------------------------------------------------
+// stream route: fp32 at M <= 64, B streamed by TMA, fp32 FMA on the CUDA cores
+// ---------------------------------------------------------------------------
+
+namespace st {
+
+constexpr int BN = 128;  // columns a block: 32 lanes x 4
+constexpr int BK = 32;   // k rows a stage
+constexpr int STAGES = 4;
+constexpr int WARPS = 8;                    // consumer warps
+constexpr int CONSUMERS = 32 * WARPS;
+constexpr int THREADS = CONSUMERS + 32;     // and one producer warp
+constexpr int B_BYTES = BK * BN * 4;        // one stage of B: 16 KB
+
+// MT: the rows of A a block covers (M padded: every row of C is in one
+// block); WM: consumer warps along M, the other WK = WARPS / WM along K,
+// each taking KW = BK / WK of a stage's k rows. A thread sums RT = MT / WM
+// rows x 4 columns.
+template <int MT_, int WM_>
+struct Cfg {
+  static constexpr int MT = MT_, WM = WM_, WK = WARPS / WM_;
+  static constexpr int RT = MT / WM, KW = BK / WK;
+  static constexpr int A_BYTES = MT * BK * 4;
+  static constexpr int A_STRIDE = (A_BYTES + 1023) / 1024 * 1024;
+  // the B stages, then the A stages, 1024-byte aligned inside the block's
+  // window, then the barriers
+  static constexpr int SMEM = 1024 + STAGES * (B_BYTES + A_STRIDE) + 2 * STAGES * 8;
+  static_assert(RT % 4 == 0 && KW % 4 == 0, "float4 reads of A and B");
+  static_assert(WK * MT * BN * 4 <= STAGES * B_BYTES, "the partial sums reuse the B ring");
+};
+using M4 = Cfg<4, 1>;
+using M8 = Cfg<8, 1>;
+using M16 = Cfg<16, 2>;
+using M32 = Cfg<32, 4>;
+using M64 = Cfg<64, 8>;
+
+__device__ __forceinline__ float lane_of(const float4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// One K chunk (blockIdx.y) of one MT x BN tile of C (blockIdx.x). With ws
+// == nullptr the tile is cast and written to c; otherwise its fp32 partial
+// goes to ws[blockIdx.y].
+template <typename CF, typename TC>
+__global__ void __launch_bounds__(THREADS, 2)
+matmul_stream(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+              TC* __restrict__ c, float* __restrict__ ws, int m, int n, int k, int kchunk) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - raw);  // the same address, generic
+  const uint32_t a0 = base + STAGES * B_BYTES;
+  const uint32_t full0 = a0 + STAGES * CF::A_STRIDE, empty0 = full0 + STAGES * 8;
+
+  const int n0 = blockIdx.x * BN;
+  const int kb = blockIdx.y * kchunk;
+  const int n_k = (min(k, kb + kchunk) - kb + BK - 1) / BK;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);           // the producer's expect_tx
+      mbar_init(empty0 + 8 * s, CONSUMERS);  // every consumer thread
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {  // the producer warp; one thread issues
+    if (tid == CONSUMERS) {
+      for (int it = 0; it < n_k; ++it) {
+        const int s = it % STAGES;
+        mbar_wait(empty0 + 8 * s, ((it / STAGES) & 1) ^ 1);
+        const uint32_t full = full0 + 8 * s;
+        const int k0 = kb + it * BK;
+        // Both boxes count whole: A's rows past M, B's columns past N and
+        // the k rows past K are zero-filled.
+        mbar_arrive_expect_tx(full, CF::A_BYTES + B_BYTES);
+        tma_load_2d(a0 + s * CF::A_STRIDE, &map_a, full, k0, 0);
+        tma_load_2d(base + s * B_BYTES, &map_b, full, n0, k0);
+      }
+    }
+    return;
+  }
+
+  const int warp = tid / 32, lane = tid % 32;
+  const int r0 = (warp % CF::WM) * CF::RT;  // this thread's first row of the tile
+  const int wk = warp / CF::WM;
+  const int kr0 = wk * CF::KW;              // its first k row of a stage
+  float acc[CF::RT][4];
+#pragma unroll
+  for (int r = 0; r < CF::RT; ++r) acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
+
+  for (int it = 0; it < n_k; ++it) {
+    const int s = it % STAGES;
+    mbar_wait(full0 + 8 * s, (it / STAGES) & 1);
+    const float* as = reinterpret_cast<const float*>(gbase + STAGES * B_BYTES + s * CF::A_STRIDE);
+    const float* bs = reinterpret_cast<const float*>(gbase + s * B_BYTES);
+#pragma unroll
+    for (int kk = 0; kk < CF::KW; kk += 4) {
+      float4 av[CF::RT];  // 4 k of each row: one broadcast read a row
+#pragma unroll
+      for (int r = 0; r < CF::RT; ++r)
+        av[r] = *reinterpret_cast<const float4*>(as + (r0 + r) * BK + kr0 + kk);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {  // a warp reads 512 contiguous bytes of a row of B
+        const float4 bv = *reinterpret_cast<const float4*>(bs + (kr0 + kk + j) * BN + 4 * lane);
+#pragma unroll
+        for (int r = 0; r < CF::RT; ++r) {
+          const float a = lane_of(av[r], j);
+          acc[r][0] = fmaf(a, bv.x, acc[r][0]);
+          acc[r][1] = fmaf(a, bv.y, acc[r][1]);
+          acc[r][2] = fmaf(a, bv.z, acc[r][2]);
+          acc[r][3] = fmaf(a, bv.w, acc[r][3]);
+        }
+      }
+    }
+    mbar_arrive(empty0 + 8 * s);  // this thread is done with the stage
+  }
+
+  // The WK partial tiles meet in the B ring, which every stage's loads have
+  // left (each consumer waited for all of them) once every consumer is past
+  // its last read; they are added in the order wk = 0, 1, ...
+  named_sync(1, CONSUMERS);
+  float* red = reinterpret_cast<float*>(gbase);  // [WK][MT][BN]
+#pragma unroll
+  for (int r = 0; r < CF::RT; ++r)
+    *reinterpret_cast<float4*>(red + (wk * CF::MT + r0 + r) * BN + 4 * lane) =
+        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+  named_sync(1, CONSUMERS);
+  float* part = ws == nullptr ? nullptr : ws + (size_t)blockIdx.y * m * n;
+  for (int i = tid; i < CF::MT * BN; i += CONSUMERS) {
+    const int row = i / BN, col = n0 + i % BN;
+    if (row >= m || col >= n) continue;
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < CF::WK; ++w) v += red[w * CF::MT * BN + i];
+    if (part != nullptr)
+      part[(size_t)row * n + col] = v;
+    else
+      c[(size_t)row * n + col] = from_f32<TC>(v);
+  }
+}
+
+// a (m, k), b (k, n) fp32, row-major, k % 4 == 0 and n % 4 == 0 (rows of
+// 16-byte multiples), both 16-byte aligned: what TMA reads.
+template <typename CF, typename TC>
+cudaError_t launch(const void* a, const void* b, void* c, float* ws, int m, int n, int k,
+                   int splits, int device, cudaStream_t stream) {
+  const int kchunk = kchunk_of(k, splits, BK);
+  if (kchunk == 0 || m > CF::MT || k % 4 || n % 4 || ((uintptr_t)a | (uintptr_t)b) % 16 ||
+      splits > 65535)
+    return cudaErrorInvalidValue;
+  CUtensorMap map_a, map_b;
+  if (!hopper::encode_2d_f32_rows(&map_a, a, m, k, CF::MT, BK) ||
+      !hopper::encode_2d_f32_rows(&map_b, b, k, n, BK, BN))
+    return cudaErrorInvalidValue;
+  // Above 48 KB of dynamic shared memory a kernel must opt in, once per device.
+  static std::atomic<unsigned long long> ready{0};
+  const unsigned long long bit = 1ull << (device & 63);
+  if (!(ready.load(std::memory_order_relaxed) & bit)) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        matmul_stream<CF, TC>, cudaFuncAttributeMaxDynamicSharedMemorySize, CF::SMEM);
+    if (e != cudaSuccess) return e;
+    ready.fetch_or(bit);
+  }
+  const dim3 grid(ceil_div(n, BN), splits);
+  matmul_stream<CF, TC><<<grid, THREADS, CF::SMEM, stream>>>(
+      map_a, map_b, static_cast<TC*>(c), splits > 1 ? ws : nullptr, m, n, k, kchunk);
+  return cudaGetLastError();
+}
+
+template <typename TC>
+cudaError_t dispatch(int tile, const void* a, const void* b, void* c, float* ws, int m, int n,
+                     int k, int splits, int device, cudaStream_t stream) {
+  switch (tile) {
+    case 0: return launch<M4, TC>(a, b, c, ws, m, n, k, splits, device, stream);
+    case 1: return launch<M8, TC>(a, b, c, ws, m, n, k, splits, device, stream);
+    case 2: return launch<M16, TC>(a, b, c, ws, m, n, k, splits, device, stream);
+    case 3: return launch<M32, TC>(a, b, c, ws, m, n, k, splits, device, stream);
+    case 4: return launch<M64, TC>(a, b, c, ws, m, n, k, splits, device, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace st
+
 // c = cast(sum over z of ws[z]), the partials added in order z = 0, 1, ...
 template <typename TC>
 __global__ void __launch_bounds__(256)
@@ -585,8 +797,9 @@ cudaError_t run(int route, int tile, const void* a, const void* b, void* c, floa
   } else if constexpr (sizeof(TA) == 2) {
     e = route == 1 ? wg::dispatch<TC>(tile, a, b, c, ws, m, n, k, splits, device, stream)
                    : cudaErrorInvalidValue;
-  } else {
-    e = cudaErrorInvalidValue;  // the wgmma route takes bf16 operands only
+  } else {  // the wgmma route takes bf16 operands only, the stream route fp32
+    e = route == 3 ? st::dispatch<TC>(tile, a, b, c, ws, m, n, k, splits, device, stream)
+                   : cudaErrorInvalidValue;
   }
   return reduce<TC>(e, ws, c, m, n, splits, stream);
 }
@@ -602,9 +815,10 @@ cudaError_t on_device(int device) {
 
 extern "C" {
 
-// route: 0 = simt, 1 = wgmma (the tf32x3 route has its own entry point).
-// tile: simt 0 = 128 x 128, 1 = 16 x 128; wgmma 0 = 128 x 128, 1 = 64 x
-// 128. splits > 1 takes an fp32 workspace of splits * m * n values.
+// route: 0 = simt, 1 = wgmma, 3 = stream (the tf32x3 route has its own
+// entry point). tile: simt 0 = 128 x 128, 1 = 16 x 128; wgmma 0 = 128 x
+// 128, 1 = 64 x 128; stream 0-4 = 4, 8, 16, 32, 64 x 128. splits > 1 takes
+// an fp32 workspace of splits * m * n values.
 // in_dtype, out_dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0
 // on success).
 int repro_matmul(const void* a, const void* b, void* c, void* ws, int m, int n, int k,

@@ -7,11 +7,14 @@ no padding copy.
 ``plan`` decides, in Python and cached per device and shape, how a product
 runs: its route (``wgmma``, the TMA + tensor-core kernel, for bf16 operands
 TMA can take; ``tf32x3``, fp32 split into TF32 halves on the tensor cores,
-for fp32 with M > 64; ``simt``, the CUDA-core kernel, for the rest), its
-tile, and how many chunks K is cut into when the tiles alone would not fill
-the card. A launch is then one ctypes call; this module allocates the fp32
-workspace of the partial sums and the tf32x3 route's split operands (one
-buffer), ``ops.matmul`` checks the arguments and allocates the output.
+for fp32 with M > 64; ``stream``, B streamed by TMA through a ring of
+shared-memory stages into fp32 FMA on the CUDA cores, for fp32 at M <= 64
+that TMA can read: the decode tick; ``simt``, the CUDA-core kernel, for
+the rest), its tile, and how many chunks K is cut into when the tiles
+alone would not fill the card. A launch is then one ctypes call; this
+module allocates the fp32 workspace of the partial sums and the tf32x3
+route's split operands (one buffer), ``ops.matmul`` checks the arguments
+and allocates the output.
 """
 from __future__ import annotations
 
@@ -24,12 +27,14 @@ import torch
 from .. import _build, scratch
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-ROUTES = {"simt": 0, "wgmma": 1, "tf32x3": 2}
+ROUTES = {"simt": 0, "wgmma": 1, "tf32x3": 2, "stream": 3}
+STREAM_ROWS = (4, 8, 16, 32, 64)  # stream: the row counts a block covers, M padded up to one
 # (route, tile) -> (rows, columns, K step, the kernel's tile code)
 TILES = {
     ("wgmma", "128x128"): (128, 128, 64, 0),
     ("wgmma", "64x128"): (64, 128, 64, 1),
     ("tf32x3", "128x128"): (128, 128, 32, 0),
+    **{("stream", f"{r}x128"): (r, 128, 32, i) for i, r in enumerate(STREAM_ROWS)},
     ("simt", "128x128"): (128, 128, 16, 0),  # bf16 TMA cannot read; fp32 only in the probe
     ("simt", "16x128"): (16, 128, 32, 1),
 }
@@ -41,7 +46,7 @@ TMA_ALIGN = 16  # bytes: TMA's rule for base addresses and row strides
 
 
 class Plan(NamedTuple):
-    route: str  # "wgmma", "tf32x3" or "simt"
+    route: str  # "wgmma", "tf32x3", "stream" or "simt"
     tile: str  # "<rows>x<columns>"
     splits: int  # K chunks; > 1 needs a workspace and a reduction
 
@@ -79,6 +84,8 @@ def plan(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool, sms: int) ->
         route, tile = "wgmma", ("64x128" if small else "128x128")
     elif dtype == torch.float32 and not small:  # the split pass takes any alignment
         route, tile = "tf32x3", "128x128"
+    elif dtype == torch.float32 and aligned and k % 4 == 0 and n % 4 == 0:
+        route, tile = "stream", f"{next(r for r in STREAM_ROWS if m <= r)}x128"
     else:
         route, tile = "simt", ("16x128" if small else "128x128")
     return Plan(route, tile, _splits(m, n, k, TILES[route, tile], sms))

@@ -7,7 +7,7 @@ tensor launches the CUDA kernel (or raises) on the route ``matmul.plan_for``
 picks; a CPU tensor takes the plain version ``matmul_ref``.
 ``matmul.launches`` counts kernel launches, one per call, and
 ``matmul.launches_by_route`` splits them by route (``wgmma``, ``tf32x3``,
-``simt``).
+``stream``, ``simt``).
 A fake tensor (the dry run's) takes the op's fake implementation
 (``is_fake``): nothing launches, and the op's FLOP formula, 2·M·K·N,
 counts it. It raises when autograd would record the call (``refuse_grad``): the

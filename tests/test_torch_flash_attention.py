@@ -140,9 +140,14 @@ def test_flash_attention_rejects(bad):
     (32, BF16, True, "wgmma"),
     (120, BF16, True, "wgmma"),  # hd % 8 == 0: rows of 16-byte multiples
     (8, BF16, True, "wgmma"),
-    (128, FP32, True, "simt"),  # fp32 stays on the CUDA cores
-    (80, FP32, True, "simt"),
-    (32, FP32, True, "simt"),
+    (128, FP32, True, "tf32x3"),  # fp32 as three TF32 products on the tensor cores
+    (80, FP32, True, "tf32x3"),
+    (32, FP32, True, "tf32x3"),
+    (64, FP32, True, "tf32x3"),  # Whisper
+    (8, FP32, True, "tf32x3"),
+    (128, FP32, False, "simt"),
+    (100, FP32, True, "simt"),
+    (136, FP32, True, "simt"),
     (128, BF16, False, "simt"),  # q, k or v off 16 bytes: TMA cannot read it
     (100, BF16, True, "simt"),  # hd % 8 == 4: rows not 16-byte multiples
     (36, BF16, True, "simt"),
@@ -164,12 +169,12 @@ def test_flash_tile_constants_match_kernel():
 
 def test_flash_plan_for_reads_alignment():
     """plan_for takes the route from the tensors: an operand 2 bytes off a
-    16-byte boundary (a view one element in) goes to simt."""
+    16-byte boundary (a view one element in) goes to simt; fp32 to tf32x3."""
     q, k, v = (torch.zeros((1, 8, 2, 64), dtype=BF16) for _ in range(3))
     assert launcher.plan_for(q, k, v) == "wgmma"
     off = torch.zeros(1 * 8 * 2 * 64 + 1, dtype=BF16)[1:].view(1, 8, 2, 64)
     assert launcher.plan_for(q, off, v) == "simt"
-    assert launcher.plan_for(q.float(), k.float(), v.float()) == "simt"
+    assert launcher.plan_for(q.float(), k.float(), v.float()) == "tf32x3"
 
 
 def test_flash_plan_is_cached():
@@ -189,6 +194,11 @@ class _FakeLib:
 
     def repro_flash_attention(self, *args):
         self.calls.append(args)
+        return 0
+
+    def repro_flash_attention_tf32x3(self, *args):  # the four split parts after q, k, v, out
+        self.calls.append(args[:4] + args[8:17] + (launcher.DTYPE_CODES[FP32],
+                                                   launcher.ROUTES["tf32x3"]) + args[17:])
         return 0
 
 
@@ -216,7 +226,7 @@ def test_flash_launch_is_one_library_call(shape, dtype, causal, window, monkeypa
     assert (ccausal, cwin) == (int(causal), window or 0)
     assert scale == pytest.approx(1 / math.sqrt(hd))
     assert (dt, croute) == (launcher.DTYPE_CODES[dtype], launcher.ROUTES[route])
-    assert route == ("wgmma" if dtype == BF16 and hd % 8 == 0 else "simt")
+    assert route == ("simt" if hd % 8 else "wgmma" if dtype == BF16 else "tf32x3")
     assert (dev, stream) == (0, 0)
 
 
@@ -359,12 +369,14 @@ def cuda_device():
                          + HD_CASES + [(1, 70, 70, 2, 2, 100, True, None)])
 @pytest.mark.parametrize("name", list(DTYPES))
 def test_flash_attention_kernel_matches_plain_on_card(case, name, cuda_device):
-    """Each case launches once, on the route its plan names: wgmma for bf16
-    with hd % 8 == 0 and hd <= 128, simt for the rest and for fp32."""
+    """Each case launches once, on the route its plan names: with hd % 8 == 0
+    and hd <= 128 wgmma for bf16 and tf32x3 for fp32, simt for the rest."""
     b, s, s_k, h, kv, hd, causal, win = case
     _, ts = _inputs(b, s, s_k, h, kv, hd, name)
     qt, kt, vt = (t.to(cuda_device) for t in ts)
-    route = "wgmma" if name == "bfloat16" and hd % 8 == 0 and hd <= 128 else "simt"
+    route = "simt"
+    if hd % 8 == 0 and hd <= 128:
+        route = "wgmma" if name == "bfloat16" else "tf32x3"
     assert launcher.plan_for(qt, kt, vt) == route
     before, by_route = flash_attention.launches, dict(flash_attention.launches_by_route)
     out = flash_attention(qt, kt, vt, causal=causal, window=win)

@@ -130,9 +130,16 @@ BF16, FP32 = torch.bfloat16, torch.float32
     ((64, 3072, 3072), BF16, True, "wgmma", "64x128"),  # at it
     ((4, 3072, 3072), BF16, True, "wgmma", "64x128"),  # a decode tick
     ((65, 3072, 3072), FP32, True, "tf32x3", "128x128"),
-    ((64, 3072, 3072), FP32, True, "simt", "16x128"),  # fp32 at M <= 64 stays on simt
-    ((4, 3072, 3072), FP32, True, "simt", "16x128"),  # the fp32 decode tick
-    ((64, 4100, 201), FP32, False, "simt", "16x128"),
+    ((64, 3072, 3072), FP32, True, "stream", "64x128"),  # fp32 at M <= 64: B streamed by TMA
+    ((4, 3072, 3072), FP32, True, "stream", "4x128"),  # the fp32 decode tick
+    ((64, 4100, 201), FP32, False, "simt", "16x128"),  # TMA cannot read it
+    ((1, 3072, 3072), FP32, True, "stream", "4x128"),  # M padded to the row configs
+    ((5, 3072, 3072), FP32, True, "stream", "8x128"),
+    ((16, 1024, 4096), FP32, True, "stream", "16x128"),
+    ((33, 512, 2048), FP32, True, "stream", "64x128"),
+    ((4, 3072, 3072), FP32, False, "simt", "16x128"),  # an operand off 16 bytes
+    ((4, 4098, 3072), FP32, True, "simt", "16x128"),  # K % 4 != 0: A's rows not 16 bytes
+    ((4, 512, 51865), FP32, True, "simt", "16x128"),  # Whisper's fp32 head: N % 4 != 0
     ((1, 200, 129), BF16, True, "simt", "16x128"),  # M = 1, odd N
     ((33, 65, 17), BF16, True, "simt", "16x128"),  # tests/test_kernels.py::MM_CASES
     ((100, 300, 50), BF16, True, "simt", "128x128"),
@@ -236,7 +243,9 @@ def _route(name, m, k, n):
     """The route the plan names for an aligned (M, K) @ (K, N) in ``name``."""
     if name == "bfloat16":
         return "wgmma" if k % 8 == 0 and n % 8 == 0 else "simt"
-    return "tf32x3" if m > launcher.SMALL_M else "simt"
+    if m > launcher.SMALL_M:
+        return "tf32x3"
+    return "stream" if k % 4 == 0 and n % 4 == 0 else "simt"
 
 
 def _check_on_card(a, b, route, out_dtype=None):
