@@ -88,7 +88,7 @@ any failure raises and exits non-zero.
       at Zamba2's heads on SSD_ROUTE_CASES (chunks of 64, 128, 256, S <
       chunk, decays that overflow fp32 above the diagonal), with chunk
       invariance (32 against 128); every SSD call counted on the route its
-      plan names (bf16 ``wgmma``, fp32 ``simt``); atol = rtol = 2e-4 (fp32),
+      plan names (bf16 ``wgmma``, fp32 ``tf32x3``); atol = rtol = 2e-4 (fp32),
       2e-2 (bf16), the normalised error printed beside it. Then flash
       attention at Zamba2's heads (hd 80) on ATTN_ROUTE_CASES, the host
       microseconds per SSD, matmul and RMSNorm wrapper call, and matmul,
@@ -96,16 +96,22 @@ any failure raises and exits non-zero.
       tick give them. Times and bounds as in phase D; the SSD row adds its
       back-to-back time (L2 flushed, the inputs cycled over copies so each
       call reads them from device memory) and its device time by kernel
-      (``torch.profiler``: the wgmma route's ``ssd_states`` and
-      ``ssd_outputs``, the wrapper's ``a = -exp(a_log)``); no PyTorch call
-      computes the SSD, so its library time is "none".
+      (``torch.profiler``: the tensor-core routes' ``ssd_states`` and
+      ``ssd_outputs`` kernels, the wrapper's ``a = -exp(a_log)``); the SSD's
+      operations are those y needs (``ssd_work``: C B^T once per batch and
+      chunk, shared by the heads); the fp32 row's bound is the split-TF32 one
+      (bytes, or three TF32 products), the FMA bound beside it, and the simt
+      route's back-to-back time (launched directly, not counted) beside its
+      own; in fp32 the simt route is also held to ssd_ref on SSD_SMALL and
+      SSD_ROUTE_CASES, and an fp32 call with unaligned x is counted on simt;
+      no PyTorch call computes the SSD, so its library time is "none".
   (H) Prefill: ``api.prefill_logits`` on Zamba2-2.7B at full width and depth
       (54 Mamba2 layers, 9 uses of the shared attention block), bf16
       weights from a seeded generator, batch 4 x 512 (two SSD chunks):
       finite (4, 512, 32000) fp32 logits, exactly 280 matmul (all wgmma;
       the fp32 forward's 280 all tf32x3), 127 RMSNorm, 9 flash-attention
       (all wgmma; the fp32 forward's 9 all tf32x3) and 54 SSD launches (all
-      wgmma; the fp32 forward's 54 all simt) per forward; the fp32
+      wgmma; the fp32 forward's 54 all tf32x3) per forward; the fp32
       forward's wall (median of 3) printed. Each of the 63
       blocks and the head is held kernel route against plain route fed the
       same input: normalised error at most 2e-2 in bf16 and 2e-4 in fp32.
@@ -330,8 +336,9 @@ bf16 flash attention of a prefill, back to back, to SDPA's: at most 2x on
 StarCoder2 (hd 128), 3x on Zamba2 (hd 80), the fp32 one to at most 1.0x
 SDPA's (TF32 off) and 0.5x the simt route's on both, the bf16 RMSNorm of each LM's
 prefill, back to back, to at most 1.05x F.rms_norm's (the single-call and
-decode sums printed), and the bf16 SSD at Zamba2's prefill shape, back to
-back, to at most 10x its bytes bound. Its last two
+decode sums printed), the bf16 SSD at Zamba2's prefill shape, back to
+back, to at most 10x its bytes bound, and the fp32 one to at most 0.5x the
+simt route's. Its last two
 lines are the kernel summary (one JSON object; each entry carries the
 launches of phases M-R and U by path) and the result
 ``{"ok": true, "device": {...}}``. There is no CPU fallback: without a CUDA
@@ -415,6 +422,7 @@ from repro_torch.kernels.rmsnorm.rmsnorm import plan_for as rms_plan_for  # noqa
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
 from repro_torch.kernels.ssd.ops import ssd, ssd_on_shards  # noqa: E402
 from repro_torch.kernels.ssd.ssd import plan_for as ssd_plan_for  # noqa: E402
+from repro_torch.kernels.ssd.ssd import ssd_scan  # noqa: E402
 from repro_torch.kernels.ssd.ref import ssd_ref  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.hillclimb import run_variant  # noqa: E402
@@ -837,7 +845,7 @@ ATTN_SHORT_Q = [(2, 40, 100, 4, 2, 32, None), (1, 70, 200, 6, 2, 48, 64)]
 ATTN_ROUTE_CASES = [(2, 200, 200, True, None), (1, 300, 420, True, None),
                     (1, 330, 330, True, 100), (1, 77, 77, False, None)]
 ATTN_ROUTE_SEED = 16
-SSD_ROUTES = ("simt", "wgmma")
+SSD_ROUTES = ("simt", "wgmma", "tf32x3")
 FLASH_ROUTES = ("simt", "wgmma", "tf32x3")
 MATMUL_ROUTES = ("simt", "wgmma", "tf32x3", "stream")
 # bf16 flash attention per prefill, back to back, at most this times SDPA's
@@ -848,7 +856,8 @@ FLASH_FLOORS = {LM_ARCH: 2.0, HYBRID_ARCH: 3.0}
 # attention of a prefill back to back at most FP32_FLASH_FLOOR x SDPA's, its
 # decode tick's products back to back at most FP32_TICK_FLOOR x
 # torch.matmul's, and both at most FP32_SIMT_FLOOR x the CUDA-core route
-# (simt) they replace, timed beside them.
+# (simt) they replace, timed beside them; Zamba2's fp32 SSD (tf32x3) at its
+# prefill shape likewise against simt.
 FP32_FLASH_FLOOR = 1.0
 FP32_TICK_FLOOR = 1.25
 FP32_SIMT_FLOOR = 0.5
@@ -942,7 +951,7 @@ def expected_flash_route(dtype) -> str:
 
 
 def expected_ssd_route(dtype) -> str:
-    return "wgmma" if dtype == torch.bfloat16 else "simt"
+    return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
 
 
 def check_ssd_routes(where: str, route: str, n: int) -> None:
@@ -954,7 +963,7 @@ def check_ssd_routes(where: str, route: str, n: int) -> None:
 
 def counted_ssd(args, chunk: int):
     """One SSD call that must launch once, on the route its plan names
-    (bf16 wgmma, fp32 simt)."""
+    (bf16 wgmma, fp32 tf32x3)."""
     x, _, _, b, c = args
     route = ssd_plan_for(x, b, c, min(chunk, x.shape[1]))
     check(route == expected_ssd_route(x.dtype), f"ssd {x.dtype} planned {route}")
@@ -994,6 +1003,16 @@ def simt_flash(q, k, v):
     out = torch.empty_like(q)
     flash_launch(q, k, v, out, "simt", torch.cuda.current_stream().cuda_stream, causal=True,
                  window=None)
+    return out
+
+
+def simt_ssd(args, chunk: int):
+    """The SSD on the simt route, launched directly and not counted: the
+    CUDA-core kernel that the tf32x3 route replaces."""
+    x, dt, a_log, b, c = args
+    out = torch.empty_like(x)
+    ssd_scan(x, dt.float(), -torch.exp(a_log.float()), b, c, out, min(chunk, x.shape[1]), "simt",
+             None)
     return out
 
 
@@ -1360,19 +1379,27 @@ def ssd_inputs(b, s, h, p, n, dtype, gen):
 
 def ssd_work(b, s, h, p, n, chunk, dtype) -> tuple[float, float]:
     """(bytes, operations) of one SSD call: x, b, c read and y written in the
-    input dtype, dt and a in fp32. Per (batch, head, chunk): C B^T and its
-    product with xdt on the causal triangle only (L is 0 above the
-    diagonal), Q(Q + 1)/2 dot products of N and of P, Q(Q + 1)(N + P)
-    operations; C state^T and the state update, 4QPN."""
+    input dtype, dt and a in fp32. The operations are those y needs, 2 a
+    multiply-add: per (batch, chunk) C B^T on the causal triangle (L is 0
+    above the diagonal), Q(Q + 1)/2 dot products of N, which every head
+    shares; per (batch, head, chunk) its product with xdt on that triangle,
+    Q(Q + 1)/2 dot products of P; per (batch, head) the state update of
+    every chunk but the last and C state^T of every chunk but the first (the
+    last chunk's state is never read, the first's is 0), 2QPN each."""
     el = torch.finfo(dtype).bits // 8
     q = min(chunk, s)
+    nc = s // q
     nbytes = el * (2 * b * s * h * p + 2 * b * s * n) + 4 * (b * s * h + h)
-    return nbytes, b * h * (s // q) * (q * (q + 1) * (n + p) + 4 * q * p * n)
+    tri = nc * q * (q + 1)
+    return nbytes, b * (tri * n + h * (tri * p + 4 * (nc - 1) * q * p * n))
 
 
 def ssd_route_cases(phase: str, cfg) -> None:
     """The SSD kernel against ssd_ref at ``cfg``'s heads on SSD_ROUTE_CASES,
-    bf16 on wgmma and fp32 on simt; the steep case must stay finite."""
+    bf16 on wgmma and fp32 on tf32x3, and in fp32 the simt route too (the
+    route of what tf32x3 cannot read), launched directly; the steep case
+    must stay finite. Then one fp32 call with x 4 bytes off a 16-byte
+    boundary, which the wrapper must count on simt."""
     gen = torch.Generator(device="cuda").manual_seed(SSD_ROUTE_SEED)
     p, n = cfg.ssm.head_dim, cfg.ssm.state_dim
     for dtype in DTYPES:
@@ -1384,9 +1411,26 @@ def ssd_route_cases(phase: str, cfg) -> None:
             out, route = counted_ssd(args, chunk)
             ref = ssd_ref(*args, chunk=chunk)
             err = max_err_within(out, ref, TOL[dtype])
+            extra = ""
+            if dtype == torch.float32:  # and on simt, launched directly
+                alt = simt_ssd(args, chunk)
+                extra = (f"; simt max_abs_err {max_err_within(alt, ref, TOL[dtype]):.3e} "
+                         f"normalised {normalised_err(alt, ref):.3e}")
             print(f"{phase} {name_of(dtype):8s} ssd B={b} S={s} H={h} P={p} N={n} chunk={chunk}"
                   f"{' steep' if steep else ''}: {route}  max_abs_err {err:.3e}  normalised "
-                  f"{normalised_err(out, ref):.3e}")
+                  f"{normalised_err(out, ref):.3e}{extra}")
+    b, s, h, chunk, _ = SSD_ROUTE_CASES[0]
+    x, dt, a_log, bb, cc = ssd_inputs(b, s, h, p, n, torch.float32, gen)
+    shifted = torch.empty(x.numel() + 1, device="cuda")[1:].view(x.shape).copy_(x)
+    check(ssd_plan_for(shifted, bb, cc, chunk) == "simt", "unaligned fp32 ssd not planned on simt")
+    before, by = ssd.launches, dict(ssd.launches_by_route)
+    out = ssd(shifted, dt, a_log, bb, cc, chunk=chunk)
+    check(ssd.launches == before + 1 and ssd.launches_by_route["simt"] == by["simt"] + 1,
+          f"ssd routes {ssd.launches_by_route} (before {by}), expected one on simt")
+    ref = ssd_ref(x, dt, a_log, bb, cc, chunk=chunk)
+    err = max_err_within(out, ref, TOL[torch.float32])
+    print(f"{phase} float32  ssd B={b} S={s} H={h} P={p} N={n} chunk={chunk} x unaligned: simt  "
+          f"max_abs_err {err:.3e}  normalised {normalised_err(out, ref):.3e}")
 
 
 def device_us_by_kernel(fn, calls: int = 20) -> dict:
@@ -1428,8 +1472,13 @@ def phase_g(gen) -> dict:
             args = ssd_inputs(b, s, h, p, n, dtype, gen)
             (out, route), ref = counted_ssd(args, chunk), ssd_ref(*args, chunk=chunk)
             err = max_err_within(out, ref, TOL[dtype])
+            extra = ""
+            if dtype == torch.float32:  # and on simt, launched directly
+                alt = simt_ssd(args, chunk)
+                extra = f"; simt max_abs_err {max_err_within(alt, ref, TOL[dtype]):.3e}"
             print(f"G {name_of(dtype):8s} ssd B={b} S={s} H={h} P={p} N={n} chunk={chunk}: "
-                  f"{route}  max_abs_err {err:.3e}  normalised {normalised_err(out, ref):.3e}")
+                  f"{route}  max_abs_err {err:.3e}  normalised {normalised_err(out, ref):.3e}"
+                  f"{extra}")
     x, dt, _, b, c = ssd_inputs(1, 128, 2, 16, 8, torch.float32, gen)
     a_log = torch.zeros(2, device="cuda")
     o32, o128 = ssd(x, dt, a_log, b, c, chunk=32), ssd(x, dt, a_log, b, c, chunk=128)
@@ -1458,7 +1507,11 @@ def phase_g(gen) -> dict:
         # device memory as each layer's call does
         copies = cold_copies(args)
         row.update(route=route,
-                   b2b_ms=b2b_ms(lambda i: ssd(*copies[i % len(copies)], chunk=sc.chunk)))
+                   b2b_ms=b2b_ms(lambda i: ssd(*copies[i % len(copies)], chunk=sc.chunk)),
+                   **route_bound(*ssd_work(*shape, sc.chunk, dtype), dtype, route))
+        if dtype == torch.float32:  # the CUDA-core route tf32x3 replaces, not counted
+            max_err_within(simt_ssd(args, sc.chunk), ssd_ref(*args, chunk=sc.chunk), TOL[dtype])
+            row["simt_b2b_ms"] = b2b_ms(lambda i: simt_ssd(copies[i % len(copies)], sc.chunk))
         print_row("G", "ssd", dtype, "B={} S={} H={} P={} N={} chunk={}".format(
             *shape, sc.chunk) + f" (normalised {row['normalised_err']:.3e})", row)
         split = device_us_by_kernel(lambda: ssd(*args, chunk=sc.chunk))
@@ -1570,9 +1623,10 @@ def phase_h(gen):
             check(matmul.launches_by_route == mm32, f"Zamba2 fp32 prefill: matmul routes "
                   f"{matmul.launches_by_route}, expected {mm32}")
             check_flash_routes("Zamba2 fp32 prefill", "tf32x3", want["flash_attention"])
-            check_ssd_routes("Zamba2 fp32 prefill", "simt", want["ssd"])
+            check_ssd_routes("Zamba2 fp32 prefill", "tf32x3", want["ssd"])
         got["float32_matmul_routes"] = dict(matmul.launches_by_route)
         got["float32_flash_attention_routes"] = dict(flash_attention.launches_by_route)
+        got["float32_ssd_routes"] = dict(ssd.launches_by_route)
         plain32 = api.prefill_logits(params32, cfg, batch, compute_dtype=torch.float32,
                                      use_kernel=False)
         err32 = normalised_err(out32, plain32)
@@ -4082,7 +4136,8 @@ def rmsnorm_ssd_floors(rows, hybrid_rows) -> None:
     over one prefill of back-to-back calls at most RMS_FLOOR x F.rms_norm's
     on each LM (the decode tick's and the single-call sums printed); the bf16
     SSD of Zamba2's prefill back to back at most SSD_BOUND_FLOOR x its
-    bytes bound."""
+    bytes bound, the fp32 one (tf32x3) at most FP32_SIMT_FLOOR x the simt
+    route's."""
     ratios = {}
     for arch, by in ((LM_ARCH, rows), (HYBRID_ARCH, hybrid_rows)):
         for per in ("prefill", "decode tick"):
@@ -4103,8 +4158,20 @@ def rmsnorm_ssd_floors(rows, hybrid_rows) -> None:
           f"ms back to back")
     check(all(r <= RMS_FLOOR for r in ratios.values()),
           f"bf16 RMSNorm back to back at {ratios} x F.rms_norm's (floor {RMS_FLOOR}x)")
+    row32 = hybrid_rows["ssd"][torch.float32][0]
+    r_simt = row32["b2b_ms"] / row32["simt_b2b_ms"]
+    print(f"ssd {HYBRID_ARCH} fp32 prefill shape: {row32['b2b_ms']:.4f} ms a call back to back "
+          f"({row32['route']}), {row32['ms']:.4f} single; against the simt route "
+          f"{row32['simt_b2b_ms']:.4f} ms ({r_simt:.2f}x); split-TF32 bound "
+          f"{row32['bound_ms']:.4f} ms ({row32['bound_by']}), "
+          f"{row32['bound_ms'] / row32['b2b_ms']:.1%} of it; FMA bound "
+          f"{row32['fma_bound_ms']:.4f} ms; x{row32['count']} per prefill: "
+          f"{row32['b2b_ms'] * row32['count']:.3f} ms back to back, simt "
+          f"{row32['simt_b2b_ms'] * row32['count']:.3f} ms")
     check(ssd_ratio <= SSD_BOUND_FLOOR,
           f"bf16 SSD back to back at {ssd_ratio:.2f}x its bound (floor {SSD_BOUND_FLOOR}x)")
+    check(r_simt <= FP32_SIMT_FLOOR,
+          f"fp32 SSD back to back at {r_simt:.2f}x the simt route's (floor {FP32_SIMT_FLOOR}x)")
 
 
 def lm_entries(rows, launches, serving, hybrid_rows, hybrid_launches, hybrid_serving) -> list:

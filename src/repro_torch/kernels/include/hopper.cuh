@@ -1,10 +1,10 @@
 // Hopper building blocks shared by the port's TMA kernels (the matmul's,
 // the conv's, the flash attention's and the SSD's wgmma routes, the fp32
-// tf32x3 routes of the matmul, the conv and flash attention, and the
-// matmul's fp32 stream route), in inline PTX for sm_90a: mbarriers, TMA
+// tf32x3 routes of the matmul, the conv, flash attention and the SSD, and
+// the matmul's fp32 stream route), in inline PTX for sm_90a: mbarriers, TMA
 // tile loads (2-D and 4-D), the m64n128k16 and m64n64k16 bf16 wgmmas and
-// the m64n128k8 and m64n64k8 tf32 ones (A from shared memory) with their
-// shared-memory descriptors, the proxy fence and a named barrier; the
+// the m64n128k8 and m64n64k8 tf32 ones (A from shared memory; m64n64k8
+// also from registers, the SSD's G) with their shared-memory descriptors, the proxy fence and a named barrier; the
 // split of fp32 into two TF32 halves and the pass that writes split (and
 // transposed) operands; and, on the host, the bf16 and fp32 tensor-map
 // encoders (128-byte swizzled for the wgmmas, unswizzled for the stream
@@ -332,6 +332,36 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], uint64_t des
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 64, fp32) (+)= A (64 x 8, tf32 in registers) @ B (8 x 64, tf32 in
+// shared memory, K-major). A is the m64k8 register fragment: warp w of the
+// warpgroup holds rows 16w + lane/4 (+ 8) and, per register, one k: a[0]
+// (row, k = lane % 4), a[1] (row + 8, same k), a[2] (row, k + 4), a[3]
+// (row + 8, k + 4). Of an m64n64 accumulator (columns 8j + 2 (lane % 4) +
+// {0, 1}), columns [8j, 8j + 8) are that fragment when B's k row t holds
+// the accumulator's column 2t and row t + 4 its column 2t + 1: the SSD's
+// G x_j, whose x_j^T the kernel writes in that order.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                       uint64_t desc_b, int scale_d = 1) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "setp.ne.b32 p, %37, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
 // One stage of a tf32x3 product: for each of the BK / 8 k8 slices of the

@@ -8,9 +8,9 @@ wrapper precomputes (``dt * A`` and its cumulative sums, ``x * dt``) are
 taken inside the kernel; only ``a = -exp(a_log)`` (H numbers) is taken
 here. A CUDA tensor launches the CUDA kernels (or raises) on the route
 ``ssd.plan_for`` picks; a CPU tensor takes the plain version ``ssd_ref``.
-``ssd.launches`` counts kernel launches, one per call (the wgmma route's
-two kernels are one ctypes call), and ``ssd.launches_by_route`` splits
-them by route (``wgmma``, ``simt``).
+``ssd.launches`` counts kernel launches, one per call (a tensor-core
+route's two kernels are one ctypes call), and ``ssd.launches_by_route``
+splits them by route (``wgmma``, ``tf32x3``, ``simt``).
 A fake tensor (the dry run's) takes the op's fake implementation
 (``is_fake``): nothing launches, and the op's FLOP formula counts the
 products of the chunked scan as ``ssd_ref`` computes them. It raises when
@@ -87,7 +87,7 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor,
     a = -torch.exp(a_log.float())
     out = torch.empty_like(x)
     route = plan_for(x, b, c, q)
-    states = state_scratch(x, q) if route == "wgmma" else None
+    states = state_scratch(x, q, route)
     ssd_scan(x, dt.float(), a, b, c, out, q, route, states)
     ssd.launches += 1
     ssd.launches_by_route[route] += 1
