@@ -8,12 +8,15 @@ picks; a CPU tensor takes the plain version ``conv2d_ref``.
 ``direct``).
 It raises when autograd would record the call (``refuse_grad``): the
 kernel has no backward, and training takes the plain route.
+While a profiler records, a call is the span ``kernels.conv2d``
+(``repro_torch.obs.hotpath``), from the checks through the launch.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import refuse_dtensor, refuse_grad
+from repro_torch.obs import hotpath
 from .conv2d import ROUTES, launch, plan_for
 from .ref import conv2d_ref
 
@@ -47,6 +50,13 @@ def _check(x, w) -> None:
 
 def conv2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (N, C, H, W); w (K, C, R, S) -> (N, K, H, W), 'same' pad, stride 1."""
+    if hotpath.recording():
+        with hotpath.span("kernels.conv2d"):
+            return _conv2d(x, w)
+    return _conv2d(x, w)
+
+
+def _conv2d(x, w):
     _check(x, w)
     refuse_grad("conv2d", x, w)
     if x.device.type == "cpu":

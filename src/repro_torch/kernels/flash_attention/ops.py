@@ -21,6 +21,8 @@ DTensor (``refuse_dtensor``): ``flash_attention_on_shards`` takes DTensors,
 through the op ``repro_torch::flash_attention``, whose sharding strategies
 DTensor reads, so that each rank's kernel runs on its local batch rows and
 heads; ``attn_fn`` takes either.
+While a profiler records, a call is the span ``kernels.flash_attention``
+(``repro_torch.obs.hotpath``), from the checks through the launch.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from torch.distributed.tensor.experimental import register_sharding
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import is_fake, refuse_dtensor, refuse_grad
+from repro_torch.obs import hotpath
 from .flash_attention import DTYPE_CODES, ROUTES, launch, plan_for
 from .ref import attention_ref
 
@@ -68,6 +71,13 @@ def _check(q, k, v, window) -> None:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
                     window: int | None = None) -> torch.Tensor:
     """q (B, S, H, hd); k, v (B, Sk, KV, hd) -> (B, S, H, hd)."""
+    if hotpath.recording():
+        with hotpath.span("kernels.flash_attention"):
+            return _flash_attention(q, k, v, causal, window)
+    return _flash_attention(q, k, v, causal, window)
+
+
+def _flash_attention(q, k, v, causal, window):
     _check(q, k, v, window)
     refuse_grad("flash_attention", q, k, v)
     if is_fake(q, k, v):

@@ -15,6 +15,8 @@ kernel has no backward, and training takes the plain route. It raises on a
 DTensor (``refuse_dtensor``): ``matmul_on_shards`` takes DTensors, through
 the op ``repro_torch::matmul``, whose sharding strategies DTensor reads, so
 that each rank's kernel runs on its local shards.
+While a profiler records, a call is the span ``kernels.matmul``
+(``repro_torch.obs.hotpath``), from the checks through the launch.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from torch.distributed.tensor.experimental import register_sharding
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import is_fake, refuse_dtensor, refuse_grad
+from repro_torch.obs import hotpath
 from .matmul import DTYPE_CODES, ROUTES, launch, plan_for
 from .ref import matmul_ref
 
@@ -58,6 +61,13 @@ def _check(a, b, out_dtype) -> None:
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
     """a (M, K) @ b (K, N) -> (M, N) in ``out_dtype or a.dtype``, fp32 sums."""
+    if hotpath.recording():
+        with hotpath.span("kernels.matmul"):
+            return _matmul(a, b, out_dtype)
+    return _matmul(a, b, out_dtype)
+
+
+def _matmul(a, b, out_dtype):
     _check(a, b, out_dtype)
     refuse_grad("matmul", a, b)
     if is_fake(a, b):

@@ -12,6 +12,8 @@ kernel has no backward, and training takes the plain route. It raises on a
 DTensor (``refuse_dtensor``): ``rmsnorm_on_shards`` takes DTensors, through
 the op ``repro_torch::rmsnorm``, whose sharding strategies DTensor reads, so
 that each rank's kernel runs on its local rows.
+While a profiler records, a call is the span ``kernels.rmsnorm``
+(``repro_torch.obs.hotpath``), from the checks through the launch.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from torch.distributed.tensor.experimental import register_sharding
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import is_fake, refuse_dtensor, refuse_grad
+from repro_torch.obs import hotpath
 from .ref import rmsnorm_ref
 from .rmsnorm import DTYPE_CODES, plan_for, rmsnorm_rows
 
@@ -50,6 +53,13 @@ def _check(x, scale) -> None:
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
     """x (..., D); scale (D,) -> (..., D) in x's dtype, fp32 arithmetic."""
+    if hotpath.recording():
+        with hotpath.span("kernels.rmsnorm"):
+            return _rmsnorm(x, scale, eps)
+    return _rmsnorm(x, scale, eps)
+
+
+def _rmsnorm(x, scale, eps):
     _check(x, scale)
     refuse_grad("rmsnorm", x, scale)
     if is_fake(x, scale):

@@ -19,6 +19,8 @@ backward, and training takes the plain route. It raises on a DTensor
 (``refuse_dtensor``): ``ssd_on_shards`` takes DTensors, through the op
 ``repro_torch::ssd``, whose sharding strategies DTensor reads, so that each
 rank's kernel runs on its local batch rows and heads.
+While a profiler records, a call is the span ``kernels.ssd``
+(``repro_torch.obs.hotpath``), from the checks through the launch.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from torch.distributed.tensor.experimental import register_sharding
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import is_fake, refuse_dtensor, refuse_grad
+from repro_torch.obs import hotpath
 from .ref import ssd_ref
 from .ssd import DTYPE_CODES, ROUTES, plan_for, ssd_scan, state_scratch
 
@@ -78,6 +81,13 @@ def _check(x, dt, a_log, b, c, chunk) -> int:
 def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor,
         c: torch.Tensor, *, chunk: int = 128) -> torch.Tensor:
     """x (B, S, H, P); dt (B, S, H); a_log (H,); b, c (B, S, N) -> (B, S, H, P)."""
+    if hotpath.recording():
+        with hotpath.span("kernels.ssd"):
+            return _ssd(x, dt, a_log, b, c, chunk)
+    return _ssd(x, dt, a_log, b, c, chunk)
+
+
+def _ssd(x, dt, a_log, b, c, chunk):
     q = _check(x, dt, a_log, b, c, chunk)
     refuse_grad("ssd", x, dt, a_log, b, c)
     if is_fake(x, dt, a_log, b, c):

@@ -33,6 +33,7 @@ from repro_torch.kernels.matmul.ops import matmul, matmul_on_shards
 from repro_torch.kernels.matmul.ref import matmul_ref
 from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_on_shards
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.obs import hotpath
 from repro_torch.parallel.act import (batch_heads_spec, constrain, fitted_placements, gathered,
                                       local_apply, pinned, summed)
 
@@ -286,7 +287,9 @@ def gqa_decode_attention(x, params, n_heads: int, n_kv: int, k_cache, v_cache, w
     a full ring buffer passes slots-1 so every slot participates).
     Returns (out, new_k_cache, new_v_cache); the caches passed in are not
     changed. The attention over the cache is plain PyTorch, as in the JAX
-    package, where it runs outside any kernel.
+    package, where it runs outside any kernel. While a profiler records, the
+    cache write is the span ``attn.cache_write`` and the attention over the
+    cache ``attn.cache_read`` (``obs.hotpath.span``).
     """
     b, one, d = x.shape
     hd = params["wq"].shape[1] // n_heads
@@ -307,26 +310,28 @@ def gqa_decode_attention(x, params, n_heads: int, n_kv: int, k_cache, v_cache, w
     # static). Built by comparison, as jax.nn.one_hot is: a position outside
     # [0, S_slots) gives an all-zero row, so that write is dropped; no
     # scatter, so the step can be captured in a CUDA graph.
-    slots = torch.arange(s_slots, device=write_pos.device)
-    onehot = (slots[None] == write_pos[:, None]).to(cd)  # (B, S_slots)
-    k_cache = k_cache * (1 - onehot)[..., None, None] + onehot[..., None, None] * k
-    v_cache = v_cache * (1 - onehot)[..., None, None] + onehot[..., None, None] * v
+    with hotpath.span("attn.cache_write"):
+        slots = torch.arange(s_slots, device=write_pos.device)
+        onehot = (slots[None] == write_pos[:, None]).to(cd)  # (B, S_slots)
+        k_cache = k_cache * (1 - onehot)[..., None, None] + onehot[..., None, None] * k
+        v_cache = v_cache * (1 - onehot)[..., None, None] + onehot[..., None, None] * v
 
     g = n_heads // n_kv
     qg = q.reshape(b, n_kv, g, hd)
-    # einsum takes one dtype; promote as jnp.einsum does for a cache in another one
-    dk, dv = torch.promote_types(cd, k_cache.dtype), torch.promote_types(cd, v_cache.dtype)
-    scores = torch.einsum("bngh,btnh->bngt", qg.to(dk), k_cache.to(dk)).float()
-    scores = scores * (1.0 / math.sqrt(hd))
-    t = torch.arange(s_slots, device=x.device)[None, None, None, :]
-    ok = t <= valid_upto[:, None, None, None]
-    scores = scores.masked_fill(~ok, float("-inf"))
-    probs = torch.softmax(scores, dim=-1).to(cd)
-    if isinstance(probs, DTensor):  # a sequence-sharded cache: its parts summed in fp32
-        out = summed(torch.einsum("bngt,btnh->bngh", probs.to(dv).float(),
-                                  v_cache.to(dv).float())).to(dv)
-    else:
-        out = torch.einsum("bngt,btnh->bngh", probs.to(dv), v_cache.to(dv))
+    with hotpath.span("attn.cache_read"):
+        # einsum takes one dtype; promote as jnp.einsum does for a cache in another one
+        dk, dv = torch.promote_types(cd, k_cache.dtype), torch.promote_types(cd, v_cache.dtype)
+        scores = torch.einsum("bngh,btnh->bngt", qg.to(dk), k_cache.to(dk)).float()
+        scores = scores * (1.0 / math.sqrt(hd))
+        t = torch.arange(s_slots, device=x.device)[None, None, None, :]
+        ok = t <= valid_upto[:, None, None, None]
+        scores = scores.masked_fill(~ok, float("-inf"))
+        probs = torch.softmax(scores, dim=-1).to(cd)
+        if isinstance(probs, DTensor):  # a sequence-sharded cache: its parts summed in fp32
+            out = summed(torch.einsum("bngt,btnh->bngh", probs.to(dv).float(),
+                                      v_cache.to(dv).float())).to(dv)
+        else:
+            out = torch.einsum("bngt,btnh->bngh", probs.to(dv), v_cache.to(dv))
     out = out.reshape(b, 1, n_heads * hd)
     return linear(out, params["wo"], use_kernel), k_cache, v_cache
 

@@ -12,6 +12,16 @@ SSM lines at zero; xLSTM's mLSTM C and n at zero and its stabiliser m at
 -1e30, its sLSTM h and c at zero), which the reference omits; the decode
 step is ``repro_torch.models.api.decode_step`` under
 ``torch.inference_mode()``, through the kernels unless ``use_kernel=False``.
+
+Every tick is recorded in the batcher's ``spans`` (an in-memory
+``repro_torch.obs.hotpath.SpanRing``, always on: a few microseconds a tick)
+as a ``serve.tick`` span with attrs ``tick`` (``steps`` after it), ``busy``
+(occupied slots) and ``generated`` (slots that emitted a token), holding
+``serve.admit`` (attr ``rids``, the requests admitted), ``serve.gather``,
+``serve.decode`` (until ``decode_step`` returns: the enqueue),
+``serve.sync`` (``argmax(...).cpu()``, the tick's one wait on the device)
+and ``serve.commit`` (the host loop after it). A call that finds no work
+records a ``serve.tick`` holding ``serve.admit`` alone, with no attrs.
 """
 from __future__ import annotations
 
@@ -23,6 +33,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import api
+from repro_torch.obs.hotpath import SpanRing
 from repro_torch.tree import flatten, leaves
 
 
@@ -64,6 +75,9 @@ def reset_slot(cache, fresh, slot: int) -> None:
 class ContinuousBatcher:
     """Fixed-slot continuous batching over api.decode_step."""
 
+    # spans kept: 6 a tick, so ~10,900 ticks, the last 12 minutes at a 70 ms tick
+    SPANS = 1 << 16
+
     def __init__(self, cfg: ArchConfig, params, *, slots: int = 4, max_seq: int = 256,
                  greedy: bool = True, device="cuda", use_kernel: bool = True):
         self.cfg, self.params = cfg, params
@@ -83,12 +97,14 @@ class ContinuousBatcher:
         self.done: list[Completion] = []
         self.steps = 0
         self.busy_slot_steps = 0
+        self.spans = SpanRing(self.SPANS, proc="batcher")
 
     # ------------------------------------------------------------------
     def submit(self, req: Request):
         self.queue.append(req)
 
-    def _admit(self):
+    def _admit(self) -> list[int]:
+        rids = []
         for s in range(self.slots):
             if self.active[s] is None and self.queue:
                 req = self.queue.popleft()
@@ -101,6 +117,8 @@ class ContinuousBatcher:
                 # from the previous one's state: ROADMAP.md queue 3, fault 4.)
                 with torch.inference_mode():
                     reset_slot(self.cache, self.fresh, s)
+                rids.append(req.rid)
+        return rids
 
     def _gather_inputs(self):
         toks = np.zeros((self.slots, 1), np.int64)
@@ -122,8 +140,10 @@ class ContinuousBatcher:
             return api.decode_step(self.params, self.cfg, self.cache, toks, pos,
                                    use_kernel=self.use_kernel)
 
-    def _commit(self, logits):
-        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+    def _commit(self, nxt) -> int:
+        """Advance every occupied slot by the tick whose next tokens are
+        ``nxt`` (on the host); returns the number of tokens emitted."""
+        generated = 0
         for s, st in enumerate(self.active):
             if st is None:
                 continue
@@ -133,6 +153,7 @@ class ContinuousBatcher:
             if not in_prefill:
                 tok = int(nxt[s])
                 st["out"].append(tok)
+                generated += 1
                 finished = (len(st["out"]) >= req.max_new
                             or (req.eos is not None and tok == req.eos)
                             or st["pos"] >= self.max_seq - 1)
@@ -141,19 +162,30 @@ class ContinuousBatcher:
                         req.rid, st["out"], len(req.prompt),
                         self.steps - st["start_step"] + 1))
                     self.active[s] = None
+        return generated
 
     # ------------------------------------------------------------------
     def step(self) -> bool:
         """One decode tick for every occupied slot. Returns False when
         idle (no active work and empty queue)."""
-        self._admit()
-        if all(st is None for st in self.active):
-            return False
-        toks, pos = self._gather_inputs()
-        logits, self.cache = self._decode(toks, pos)
-        self.busy_slot_steps += sum(st is not None for st in self.active)
-        self.steps += 1
-        self._commit(logits)
+        span = self.spans.span
+        with span("serve.tick") as tick:
+            with span("serve.admit") as admit:
+                admit.attrs["rids"] = self._admit()
+            if all(st is None for st in self.active):
+                return False
+            with span("serve.gather"):
+                toks, pos = self._gather_inputs()
+            with span("serve.decode"):
+                logits, self.cache = self._decode(toks, pos)
+            busy = sum(st is not None for st in self.active)
+            self.busy_slot_steps += busy
+            self.steps += 1
+            with span("serve.sync"):
+                nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+            with span("serve.commit"):
+                generated = self._commit(nxt)
+            tick.attrs.update(tick=self.steps, busy=busy, generated=generated)
         return True
 
     def run(self, max_steps: int = 10_000) -> list[Completion]:

@@ -114,6 +114,47 @@ def test_batcher_matches_jax(mix, tiny_lm):
     assert smallest >= 0 and near_ties < len(margins) / 4, (smallest, near_ties, len(margins))
 
 
+_PHASES = ["serve.admit", "serve.gather", "serve.decode", "serve.sync", "serve.commit"]
+
+
+def _check_tick_spans(b):
+    """One ``serve.tick`` a tick with the five phases inside it, in order;
+    its ``busy`` sums to ``busy_slot_steps`` and its ``generated`` to the
+    tokens of the completions and of the requests in flight."""
+    evs = b.spans.events()
+    ticks = [e for e in evs if e["name"] == "serve.tick" and "tick" in e["attrs"]]
+    assert [t["attrs"]["tick"] for t in ticks] == list(range(1, b.steps + 1))
+    for t in ticks:
+        kids = [e for e in evs if e["parent"] == t["id"]]
+        assert [k["name"] for k in kids] == _PHASES
+        assert all(t["ts"] <= k["ts"] and k["ts"] + k["dur"] <= t["ts"] + t["dur"] + 1e-6
+                   for k in kids)
+    assert sum(t["attrs"]["busy"] for t in ticks) == b.busy_slot_steps
+    in_flight = sum(len(st["out"]) for st in b.active if st is not None)
+    assert sum(t["attrs"]["generated"] for t in ticks) == \
+        sum(len(c.tokens) for c in b.done) + in_flight
+    return evs
+
+
+def test_batcher_records_its_ticks(tiny_lm):
+    _, _, cfg, tparams = tiny_lm
+    kw, reqs = _completions_mix(cfg)
+    b = scheduler.ContinuousBatcher(cfg, tparams, **kw, device="cpu")
+    for r in reqs:
+        b.submit(scheduler.Request(**r))
+    for _ in range(16):  # two done, one generating, one in its prompt
+        b.step()
+    assert b.done and any(st is not None and st["out"] for st in b.active)
+    _check_tick_spans(b)
+    b.run()
+    evs = _check_tick_spans(b)
+    assert sorted(r for e in evs if e["name"] == "serve.admit" for r in e["attrs"]["rids"]) == \
+        sorted(r["rid"] for r in reqs)
+    idle = [e for e in evs if e["name"] == "serve.tick" and "tick" not in e["attrs"]]
+    assert len(idle) == 1 and [e["name"] for e in evs if e["parent"] == idle[0]["id"]] == \
+        ["serve.admit"]
+
+
 def test_batcher_default_device_raises_without_cuda(tiny_lm):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
