@@ -67,7 +67,17 @@ any failure raises and exits non-zero.
       plan (route, vectors a thread, threads a row, rows a block, 16-byte
       loads or not). The host microseconds per matmul and RMSNorm wrapper
       call on a decode shape are printed beside torch.matmul's and
-      F.rms_norm's.
+      F.rms_norm's. Then decode attention (row 6 of PERF.md's table) at
+      the serving cell's tick (64 slots of 4096 positions, 24 heads on 2 KV
+      heads of 128; each slot's position drawn as portbench's decode
+      traffic holds it, mean ~515), fp32 and bf16: ``rope_append`` and
+      ``decode_attend`` against their plain versions (``ref``; 2e-4 fp32,
+      2e-2 bf16; the v rows bit-equal), each launched once on its planned
+      route (bf16 ``mma``, fp32 ``simt``), back to back over 4 layers'
+      caches beside their bytes bounds, the plain versions and SDPA with a
+      mask over the whole cache (``enable_gqa``; the yardstick), bf16's
+      ``simt`` route back to back (launched directly, not counted), and the
+      host microseconds a wrapper call under inference mode.
   (E) Prefill: ``api.prefill_logits`` on StarCoder2-3B at full width and
       depth, bf16 weights from a seeded generator, batch 4 x 512 tokens,
       against ``forward(use_kernel=False)``: normalised error at most
@@ -77,10 +87,13 @@ any failure raises and exits non-zero.
   (F) Serving: ``ContinuousBatcher`` on the same weights, 4 slots, 8 seeded
       requests (prompts of 16-64 tokens, 8-16 new tokens each): every
       request completes; every tick makes exactly 181 matmul (all wgmma)
-      and 61 RMSNorm launches; on the first 4 ticks the kernel decode step agrees
-      with the plain one on the same cache (logits and new caches within
-      2e-2 normalised); ``steps`` and ``utilization`` equal a plain-route
-      batcher's on the same requests.
+      and 61 RMSNorm launches, and, the batcher donating its cache, 30
+      ``rope_append`` and 30 ``decode_attend`` launches; on the first 4
+      ticks the kernel decode step agrees with the plain one on the same
+      cache (logits and new caches within 2e-2 normalised), and the donated
+      step (on a copy of the cache) with the kernel one likewise;
+      ``steps`` and ``utilization`` equal a plain-route batcher's on the
+      same requests.
   (G) The SSD kernel against its plain version ``ssd_ref`` at Zamba2-2.7B's
       prefill shape (x (4, 512, 80, 64), b and c (4, 512, 64), chunk 256)
       in fp32 and with the model's bf16 x, b, c, at the small shapes of
@@ -127,8 +140,9 @@ any failure raises and exits non-zero.
       ssm, k and v lines within 2e-2 normalised; the end-to-end logits and
       caches are printed);
       the conv and ssm lines of every slot admitted after tick 0 are zero
-      before its first tick; ``steps`` and ``utilization`` equal a
-      plain-route batcher's.
+      before its first tick; no decode-attention launch (the hybrid step
+      takes no donation and keeps the blend); ``steps`` and
+      ``utilization`` equal a plain-route batcher's.
   (J) The cross-cell DSE screen (``core/screen.py``): VGG-16 and VGG-19 (no
       FC, as the campaign builds them) at inputs 64-448 x the four boards x
       precisions 16 and 8, 96 cells of 4096 seeded candidates within the
@@ -338,7 +352,8 @@ SDPA's (TF32 off) and 0.5x the simt route's on both, the bf16 RMSNorm of each LM
 prefill, back to back, to at most 1.05x F.rms_norm's (the single-call and
 decode sums printed), the bf16 SSD at Zamba2's prefill shape, back to
 back, to at most 10x its bytes bound, and the fp32 one to at most 0.5x the
-simt route's. Its last two
+simt route's; and decode_attend at the serving tick, back to back, to at
+most 0.5x SDPA's over the whole cache (both dtypes). Its last two
 lines are the kernel summary (one JSON object; each entry carries the
 launches of phases M-R and U by path) and the result
 ``{"ok": true, "device": {...}}``. There is no CPU fallback: without a CUDA
@@ -404,6 +419,16 @@ from repro_torch.kernels.conv2d.conv2d import relayout  # noqa: E402
 from repro_torch.kernels.conv2d.conv2d import split as conv_split  # noqa: E402
 from repro_torch.kernels.conv2d.ops import conv2d  # noqa: E402
 from repro_torch.kernels.conv2d.ref import conv2d_ref  # noqa: E402
+from repro_torch.kernels.decode_attention.decode_attention import \
+    Plan as DecodePlan  # noqa: E402
+from repro_torch.kernels.decode_attention.decode_attention import \
+    launch_decode_attend as decode_launch  # noqa: E402
+from repro_torch.kernels.decode_attention.decode_attention import \
+    plan as decode_plan  # noqa: E402
+from repro_torch.kernels.decode_attention.ops import (decode_attend,  # noqa: E402
+                                                      rope_append, rope_table)
+from repro_torch.kernels.decode_attention.ref import (decode_attend_ref,  # noqa: E402
+                                                      rope_append_ref)
 from repro_torch.kernels.flash_attention.flash_attention import \
     launch as flash_launch  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import \
@@ -824,6 +849,7 @@ LM_KERNELS = {  # name -> (source, the TPU kernel it replaces)
                         "src/repro/kernels/flash_attention/flash_attention.py:82"),
     "ssd": ("src/repro_torch/kernels/ssd/csrc/ssd.cu", "src/repro/kernels/ssd/ssd.py:61"),
 }
+DECODE_SOURCE = "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu"
 WRAPPERS = {"matmul": matmul, "rmsnorm": rmsnorm, "flash_attention": flash_attention,
             "ssd": ssd}
 # Small shapes of the kernel tests: tests/test_kernels.py::MM_CASES (M, K, N)
@@ -937,6 +963,8 @@ def reset_counts() -> None:
     matmul.launches_by_route = dict.fromkeys(matmul.launches_by_route, 0)
     flash_attention.launches_by_route = dict.fromkeys(flash_attention.launches_by_route, 0)
     ssd.launches_by_route = dict.fromkeys(ssd.launches_by_route, 0)
+    rope_append.launches = decode_attend.launches = 0
+    decode_attend.launches_by_route = dict.fromkeys(decode_attend.launches_by_route, 0)
 
 
 def check_flash_routes(where: str, route: str, n: int) -> None:
@@ -1197,16 +1225,18 @@ def phase_d(gen) -> dict:
     return lm_kernel_rows(cfg, gen, "D")
 
 
-def host_us_per_call(fn, calls: int = 200) -> float:
-    """Host time of one call, queued without waiting for the device."""
-    for _ in range(10):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    us = (time.perf_counter() - t0) / calls * 1e6
-    torch.cuda.synchronize()
+def host_us_per_call(fn, calls: int = 200, inference: bool = False) -> float:
+    """Host time of one call, queued without waiting for the device (under
+    ``torch.inference_mode()`` with ``inference``, as the batcher calls)."""
+    with torch.inference_mode(inference):
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        us = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
     return us
 
 
@@ -1305,9 +1335,9 @@ def phase_f(params, cfg) -> dict:
     b = ContinuousBatcher(cfg, params, slots=SLOTS, max_seq=MAX_SEQ, device="cuda")
     for r in reqs:
         b.submit(r)
-    ticks, total = [], {name: 0 for name in WRAPPERS}
+    ticks, total = [], {name: 0 for name in (*WRAPPERS, "decode_attention")}
     total["matmul_routes"] = dict.fromkeys(matmul.launches_by_route, 0)
-    max_logit_err = max_cache_err = 0.0
+    max_logit_err = max_cache_err = max_donated_err = 0.0
     while True:
         if b.steps < 4:  # the kernel decode step against the plain one, on the same cache
             b._admit()
@@ -1315,14 +1345,24 @@ def phase_f(params, cfg) -> dict:
             with torch.inference_mode():
                 lk, ck = api.decode_step(params, cfg, b.cache, toks, pos)
                 lp, cp = api.decode_step(params, cfg, b.cache, toks, pos, use_kernel=False)
+                donated = {key: t.clone() for key, t in b.cache.items()}
+                ld, cd = api.decode_step(params, cfg, donated, toks, pos, donate=True)
+            check(cd is donated, f"decode tick {b.steps}: the donated step made a new cache")
             e_logits = normalised_err(lk, lp)
             e_cache = max(normalised_err(ck[key], cp[key]) for key in ("k", "v"))
             check(e_logits <= TOL[torch.bfloat16] and e_cache <= TOL[torch.bfloat16],
                   f"decode tick {b.steps}: kernel vs plain logits {e_logits:.3e}, "
                   f"cache {e_cache:.3e}")
+            # the donated step (the batcher's: the decode-attention kernels) against the
+            # functional kernel step on the same cache
+            e_donated = max(normalised_err(ld, lk),
+                            *(normalised_err(cd[key], ck[key]) for key in ("k", "v")))
+            check(e_donated <= TOL[torch.bfloat16],
+                  f"decode tick {b.steps}: donated vs functional kernel step {e_donated:.3e}")
             max_logit_err, max_cache_err = max(max_logit_err, e_logits), max(max_cache_err,
                                                                               e_cache)
-            del lk, ck, lp, cp
+            max_donated_err = max(max_donated_err, e_donated)
+            del lk, ck, lp, cp, ld, cd, donated
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
@@ -1332,6 +1372,12 @@ def phase_f(params, cfg) -> dict:
         got = counts()
         check(got == want, f"tick {b.steps}: launches {got}, expected {want}")
         check_wgmma(f"{cfg.name} tick {b.steps}")
+        # the batcher donates its cache: the two decode-attention kernels a layer
+        got_da = (rope_append.launches, decode_attend.launches)
+        check(got_da == (cfg.n_layers, cfg.n_layers),
+              f"tick {b.steps}: rope_append, decode_attend launches {got_da}, expected "
+              f"{cfg.n_layers} each")
+        total["decode_attention"] += sum(got_da)
         for name in WRAPPERS:
             total[name] += got[name]
         for route, n in matmul.launches_by_route.items():
@@ -1354,14 +1400,133 @@ def phase_f(params, cfg) -> dict:
     wall = sum(ticks)
     print(f"F bfloat16 {LM_ARCH} serving {N_REQUESTS} requests on {SLOTS} slots: "
           f"{b.steps} ticks  utilization {b.utilization:.4f} (plain route "
-          f"{plain.utilization:.4f})  launches per tick {want}  decode vs plain on ticks 0-3: "
-          f"logits {max_logit_err:.3e}, cache {max_cache_err:.3e}  tokens equal to the plain "
+          f"{plain.utilization:.4f})  launches per tick {want} and {2 * cfg.n_layers} "
+          f"decode attention  decode vs plain on ticks 0-3: "
+          f"logits {max_logit_err:.3e}, cache {max_cache_err:.3e}, donated vs not "
+          f"{max_donated_err:.3e}  tokens equal to the plain "
           f"route {same}/{generated}")
     print(f"F bfloat16 tick {statistics.median(ticks):.3f} ms (median), "
           f"{wall / len(ticks):.3f} ms (mean); {generated} generated tokens in {wall:.1f} ms "
           f"= {generated / wall * 1e3:.1f} generated tokens/s, "
           f"{b.busy_slot_steps / wall * 1e3:.1f} slot-tokens/s")
     return dict(total, ticks=b.steps, per_tick=want)
+
+
+# The decode tick of the serving cell (portbench's starcoder2-3b.decode): 64
+# slots of 4096 positions. decode_attend back to back at most DECODE_FLOOR
+# times SDPA's over the whole cache with a mask, in the same run.
+DECODE_SLOTS, DECODE_POSITIONS = 64, 4096
+DECODE_FLOOR = 0.5
+DECODE_LAYERS = 4  # layer caches cycled back to back, so the valid rows come from device memory
+
+
+def sharegpt_positions(n: int, rng) -> np.ndarray:
+    """The cached position of ``n`` slots as the serving cell holds them
+    (portbench/traffic/decode.json): prompt and output lengths log-uniform
+    on [4, 906] and [7, 2044], redrawn while their sum passes 2048; a slot
+    drawn in proportion to its ticks, at a uniform point of them."""
+    p = np.floor(np.exp(rng.uniform(math.log(4), math.log(907), 64 * n)))
+    o = np.floor(np.exp(rng.uniform(math.log(7), math.log(2045), 64 * n)))
+    ticks = (p + o - 1)[p + o <= 2048]
+    pick = rng.choice(len(ticks), n, p=ticks / ticks.sum())
+    return np.floor(rng.uniform(0.0, 1.0, n) * ticks[pick]).astype(np.int64)
+
+
+def decode_attention_rows() -> dict:
+    """Row 6: rope_append and decode_attend against their plain versions at
+    the serving cell's tick shape (StarCoder2-3B's 24 heads on 2 KV heads of
+    128), positions drawn as the cell holds them, fp32 and bf16: back-to-back
+    device times (the layers' caches cycled) beside the bytes bound, the
+    plain versions and SDPA with a mask over the whole cache (the yardstick;
+    the port never calls it), and the host microseconds a wrapper call.
+    decode_attend back to back at most DECODE_FLOOR times SDPA's."""
+    cfg = get_config(LM_ARCH)
+    b, s, h, kv, hd = DECODE_SLOTS, DECODE_POSITIONS, cfg.n_heads, cfg.n_kv, cfg.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    valid = torch.from_numpy(sharegpt_positions(b, np.random.default_rng(31))).cuda()
+    write, rope_pos = valid.clone(), valid.clone()
+    n_valid = int((valid + 1).sum())
+    rows = {}
+    for dtype in DTYPES:
+        el = torch.finfo(dtype).bits // 8
+        q, k, v = (randn((b, 1, n * hd), dtype, gen) for n in (h, kv, kv))
+        kcs = randn((DECODE_LAYERS, b, s, kv, hd), dtype, gen)
+        vcs = randn((DECODE_LAYERS, b, s, kv, hd), dtype, gen)
+        freqs = rope_table(hd, cfg.rope_theta, torch.device("cuda"))
+        kr, vr = kcs[0].clone(), vcs[0].clone()
+        reset_counts()
+        q_rot = rope_append(q, k, v, kcs[0], vcs[0], write, rope_pos, cfg.rope_theta)
+        out = decode_attend(q_rot, kcs[0], vcs[0], valid)
+        q_ref = rope_append_ref(q, k, v, kr, vr, write, rope_pos, freqs)
+        err_q = max_err_within(q_rot, q_ref, TOL[dtype])
+        err_k = max_err_within(kcs[0], kr, TOL[dtype])
+        check(torch.equal(vcs[0], vr), "rope_append: v rows differ from the plain version")
+        err = max_err_within(out, decode_attend_ref(q_rot, kcs[0], vcs[0], valid), TOL[dtype])
+        p = decode_plan(b, s, kv, hd, dtype)
+        check((rope_append.launches, decode_attend.launches_by_route[p.route]) == (1, 1),
+              f"decode attention launches {rope_append.launches}, "
+              f"{decode_attend.launches_by_route}")
+        attend_bytes = el * (2 * n_valid * kv * hd + 2 * b * h * hd)
+        attend_ops = 4 * n_valid * h * hd
+        append_bytes = el * (2 * b * h * hd + 4 * b * kv * hd)
+        qt = q_rot.view(b, h, 1, hd)
+        kts = [kcs[i].transpose(1, 2).contiguous() for i in range(DECODE_LAYERS)]
+        vts = [vcs[i].transpose(1, 2).contiguous() for i in range(DECODE_LAYERS)]
+        mask = (torch.arange(s, device="cuda")[None] <= valid[:, None])[:, None, None]
+
+        def sdpa(i):
+            return F.scaled_dot_product_attention(qt, kts[i % DECODE_LAYERS],
+                                                  vts[i % DECODE_LAYERS], attn_mask=mask,
+                                                  enable_gqa=True)
+
+        def plain(i):
+            j = i % DECODE_LAYERS
+            qr = rope_append_ref(q, k, v, kcs[j], vcs[j], write, rope_pos, freqs)
+            return decode_attend_ref(qr, kcs[j], vcs[j], valid)
+
+        err_sdpa = normalised_err(sdpa(0).reshape(b, 1, h * hd), out)
+        kc0, vc0 = kcs[0], vcs[0]
+        row = dict(b=b, s=s, h=h, kv=kv, hd=hd, mean_position=float(valid.float().mean()),
+                   route=p.route, chunk=p.chunk, max_abs_err=err, max_abs_err_q=err_q,
+                   max_abs_err_k=err_k, sdpa_normalised_err=err_sdpa,
+                   attend_b2b_ms=b2b_ms(lambda i: decode_attend(
+                       q_rot, kcs[i % DECODE_LAYERS], vcs[i % DECODE_LAYERS], valid)),
+                   attend_bound_ms=least_ms(attend_bytes, attend_ops, dtype)[0],
+                   append_b2b_ms=b2b_ms(lambda i: rope_append(
+                       q, k, v, kcs[i % DECODE_LAYERS], vcs[i % DECODE_LAYERS], write, rope_pos,
+                       cfg.rope_theta)),
+                   append_bound_ms=least_ms(append_bytes, 0, dtype)[0],
+                   plain_b2b_ms=b2b_ms(plain), plain_ms=time_ms(lambda: plain(0)),
+                   sdpa_b2b_ms=b2b_ms(sdpa),
+                   attend_host_us=host_us_per_call(lambda: decode_attend(q_rot, kc0, vc0, valid),
+                                                   inference=True),
+                   append_host_us=host_us_per_call(lambda: rope_append(
+                       q, k, v, kc0, vc0, write, rope_pos, cfg.rope_theta), inference=True))
+        row["attend_over_sdpa"] = row["attend_b2b_ms"] / row["sdpa_b2b_ms"]
+        if p.route == "mma":  # the CUDA-core route it replaces, launched directly, not counted
+            simt = DecodePlan("simt", p.chunk)
+            row["simt_b2b_ms"] = b2b_ms(lambda i: decode_launch(
+                q_rot, kcs[i % DECODE_LAYERS], vcs[i % DECODE_LAYERS], valid,
+                torch.empty_like(q_rot), simt))
+        simt_text = (f"  simt back to back {row['simt_b2b_ms']:.4f} ms" if "simt_b2b_ms" in row
+                     else "")
+        print(f"D6 {name_of(dtype):8s} decode attention B={b} S={s} H={h} KV={kv} hd={hd} "
+              f"mean position {row['mean_position']:.1f} (route {p.route}, chunk {p.chunk}): "
+              f"max_abs_err out {err:.3e} q {err_q:.3e} k {err_k:.3e}  back to back: "
+              f"decode_attend {row['attend_b2b_ms']:.4f} ms (bound {row['attend_bound_ms']:.4f}"
+              f" ms, bytes), rope_append {row['append_b2b_ms']:.4f} ms (bound "
+              f"{row['append_bound_ms']:.4f} ms), plain {row['plain_b2b_ms']:.4f} ms (single "
+              f"{row['plain_ms']:.4f}), SDPA over the cache {row['sdpa_b2b_ms']:.4f} ms "
+              f"(decode_attend x{row['attend_over_sdpa']:.3f} of it; SDPA vs kernel normalised "
+              f"{err_sdpa:.3e}){simt_text}  host: decode_attend {row['attend_host_us']:.1f} us, "
+              f"rope_append {row['append_host_us']:.1f} us per call")
+        check(row["attend_over_sdpa"] <= DECODE_FLOOR,
+              f"decode_attend {name_of(dtype)} back to back {row['attend_b2b_ms']:.4f} ms is "
+              f"over {DECODE_FLOOR}x SDPA's {row['sdpa_b2b_ms']:.4f} ms")
+        rows[name_of(dtype)] = row
+        del q, k, v, kcs, vcs, kc0, vc0, kr, vr, kts, vts, q_rot, out, q_ref
+        torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1775,6 +1940,10 @@ def phase_i(params, cfg) -> dict:
         got = counts()
         check(got == want, f"tick {b.steps}: launches {got}, expected {want}")
         check_wgmma(f"{cfg.name} tick {b.steps}")
+        # the hybrid step takes no donation: its attention keeps the blend
+        got_da = (rope_append.launches, decode_attend.launches)
+        check(got_da == (0, 0),
+              f"tick {b.steps}: rope_append, decode_attend launches {got_da}, expected none")
         for name in WRAPPERS:
             total[name] += got[name]
         for route, n in matmul.launches_by_route.items():
@@ -4270,6 +4439,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     lm_rows = phase_d(gen)
     torch.cuda.empty_cache()
+    decode_rows = decode_attention_rows()
     params, cfg, prefill_launches, prefill_ms = phase_e(gen)
     serving = phase_f(params, cfg)
     del params
@@ -4306,6 +4476,10 @@ def main() -> int:
                           **vgg_forward_summary(rows[torch.bfloat16])}}
     entries = lm_entries(lm_rows, prefill_launches, serving, hybrid_rows, hybrid_launches,
                          hybrid_serving)
+    entries.append({"name": "decode_attention", "route": "cuda", "source": DECODE_SOURCE,
+                    "replaces": "none (plain: src/repro/models/layers.py::gqa_decode_attention)",
+                    "arch": LM_ARCH, "per": "decode tick layer",
+                    "serving_launches": serving["decode_attention"], **decode_rows})
     for e in [entry, *entries]:  # the launches of phases M-R and U, path by path
         paths = {path: by[e["name"]] for path, by in zoo.items()
                  if by.get(e["name"], {}).get("launches")}

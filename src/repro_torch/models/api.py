@@ -88,8 +88,14 @@ def init_cache(cfg: ArchConfig, batch: int, s_max: int, dtype=torch.bfloat16, *,
     return transformer.init_cache(cfg, batch, s_max, dtype, device=device)  # dense | vlm
 
 
-def decode_step(params, cfg: ArchConfig, cache, tokens, pos, **kw):
-    """(logits (B, vocab), new_cache): one new token per sequence."""
+def decode_step(params, cfg: ArchConfig, cache, tokens, pos, *, donate: bool = False, **kw):
+    """(logits (B, vocab), new_cache): one new token per sequence.
+
+    The cache passed in is not changed, unless ``donate=True`` (as
+    ``jax.jit``'s ``donate_argnums``): then the dense and VLM families may
+    update it in place and return it (``transformer.decode_step``); the
+    other families take no notice. A caller that donates uses the returned
+    cache, never the one it passed."""
     if cfg.family == "moe":
         return moe.decode_step(params, cfg, cache, tokens, pos, **kw)
     if cfg.family == "ssm":
@@ -98,4 +104,5 @@ def decode_step(params, cfg: ArchConfig, cache, tokens, pos, **kw):
         return recurrent.zamba_decode_step(params, cfg, cache, tokens, pos, **kw)
     if cfg.family == "audio":
         return encdec.decode_step(params, cfg, cache, tokens, pos, **kw)
-    return transformer.decode_step(params, cfg, cache, tokens, pos, **kw)  # dense | vlm
+    return transformer.decode_step(params, cfg, cache, tokens, pos, donate=donate,
+                                   **kw)  # dense | vlm

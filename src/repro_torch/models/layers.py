@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.kernels.decode_attention.ops import decode_attend, rope_append
 from repro_torch.kernels.matmul.ops import matmul, matmul_on_shards
 from repro_torch.kernels.matmul.ref import matmul_ref
 from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_on_shards
@@ -277,7 +278,8 @@ def _whole_heads(t):
 
 def gqa_decode_attention(x, params, n_heads: int, n_kv: int, k_cache, v_cache, write_pos, *,
                          rope_pos=None, valid_upto=None, rope: bool = True,
-                         rope_theta: float = 10000.0, use_kernel: bool = False):
+                         rope_theta: float = 10000.0, use_kernel: bool = False,
+                         donate: bool = False):
     """One-token decode: x (B, 1, D); caches (B, S_slots, n_kv, hd).
 
     ``write_pos`` (B,) — cache slot the new KV is written to (for a
@@ -290,6 +292,13 @@ def gqa_decode_attention(x, params, n_heads: int, n_kv: int, k_cache, v_cache, w
     package, where it runs outside any kernel. While a profiler records, the
     cache write is the span ``attn.cache_write`` and the attention over the
     cache ``attn.cache_read`` (``obs.hotpath.span``).
+
+    ``donate=True`` takes the decode-attention kernels on caches they take
+    (``kernels.decode_attention.ops.takes``; int64 positions): the new K/V
+    is written into ``k_cache`` and ``v_cache`` in place
+    (``rope_append``, inside ``attn.cache_write``) and the attention reads
+    each slot's valid positions only (``decode_attend``, inside
+    ``attn.cache_read``); it returns the caches passed in.
     """
     b, one, d = x.shape
     hd = params["wq"].shape[1] // n_heads
@@ -297,6 +306,14 @@ def gqa_decode_attention(x, params, n_heads: int, n_kv: int, k_cache, v_cache, w
     s_slots = k_cache.shape[1]
     rope_pos = write_pos if rope_pos is None else rope_pos
     valid_upto = write_pos if valid_upto is None else valid_upto
+    if donate:
+        q, k, v = (linear(x, params[w], use_kernel) for w in ("wq", "wk", "wv"))
+        with hotpath.span("attn.cache_write"):
+            q = rope_append(q, k, v, k_cache, v_cache, write_pos, rope_pos,
+                            rope_theta if rope else None)
+        with hotpath.span("attn.cache_read"):
+            out = decode_attend(q, k_cache, v_cache, valid_upto)
+        return linear(out, params["wo"], use_kernel), k_cache, v_cache
 
     q = split_last(linear(x, params["wq"], use_kernel), n_heads, hd)
     k = split_last(linear(x, params["wk"], use_kernel), n_kv, hd)

@@ -32,6 +32,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve as _device
+from repro_torch.kernels.decode_attention.ops import takes
 from repro_torch.kernels.flash_attention.ops import attn_fn as flash_attn_fn
 from repro_torch.tree import map_tree
 from repro_torch.parallel.act import constrain, pinned, summed
@@ -229,15 +230,28 @@ def init_cache(cfg: ArchConfig, batch: int, s_max: int, dtype=torch.bfloat16, *,
 
 
 def decode_step(params, cfg: ArchConfig, cache, tokens: torch.Tensor, pos: torch.Tensor, *,
-                compute_dtype=torch.bfloat16, use_kernel: bool = True):
+                compute_dtype=torch.bfloat16, use_kernel: bool = True, donate: bool = False):
     """tokens (B, 1) integer; pos (B,) integer -> (logits (B, vocab), new cache).
 
     For windowed attention the cache slot is pos % window (ring buffer) and
     RoPE still uses the absolute position. The cache passed in is not
-    changed.
+    changed, unless ``donate``.
+
+    ``donate=True``, in the sense of ``jax.jit``'s ``donate_argnums``, lets
+    the step update ``cache`` in place: with ``use_kernel`` on a cache that
+    the decode-attention kernels take (``kernels.decode_attention.ops.takes``:
+    plain contiguous tensors in ``compute_dtype``), each layer writes its new
+    K/V into ``cache["k"]`` and ``cache["v"]`` and attends over each slot's
+    valid positions only, and the step returns the same dict, with no stack
+    of the layers' caches; otherwise it is the step above. A caller that
+    donates uses the returned cache, never the one it passed.
     """
     x = constrain(embed(params["embed"], tokens, compute_dtype), "dec")
     slots = cache["k"].shape[2]
+    in_place = donate and use_kernel and takes(cache["k"], cache["v"], compute_dtype,
+                                               cfg.n_heads)
+    if in_place:
+        pos = pos.long()
     if cfg.window:
         write_pos = pos % slots                # ring buffer
         valid = torch.clamp(pos, max=slots - 1)  # full ring => all slots live
@@ -251,7 +265,7 @@ def decode_step(params, cfg: ArchConfig, cache, tokens: torch.Tensor, pos: torch
         out, k_c, v_c = gqa_decode_attention(
             h, bp["attn"], cfg.n_heads, cfg.n_kv, cache["k"][i], cache["v"][i], write_pos,
             rope_pos=pos, valid_upto=valid, rope=cfg.rope, rope_theta=cfg.rope_theta,
-            use_kernel=use_kernel)
+            use_kernel=use_kernel, donate=in_place)
         x = x + out
         x = x + mlp(rms_norm(x, bp["ln2"], use_kernel=use_kernel), bp["mlp"], cfg.activation,
                     use_kernel=use_kernel)
@@ -260,4 +274,6 @@ def decode_step(params, cfg: ArchConfig, cache, tokens: torch.Tensor, pos: torch
         v_new.append(v_c)
     x = rms_norm(x, params["ln_f"], use_kernel=use_kernel)
     logits = linear(x[:, 0], _head(params), use_kernel).float()
+    if in_place:
+        return logits, cache
     return logits, {"k": torch.stack(k_new), "v": torch.stack(v_new)}

@@ -11,7 +11,9 @@ copies it from a one-slot ``api.init_cache``: the hybrid family's conv and
 SSM lines at zero; xLSTM's mLSTM C and n at zero and its stabiliser m at
 -1e30, its sLSTM h and c at zero), which the reference omits; the decode
 step is ``repro_torch.models.api.decode_step`` under
-``torch.inference_mode()``, through the kernels unless ``use_kernel=False``.
+``torch.inference_mode()``, through the kernels unless ``use_kernel=False``,
+with the batcher's cache donated (``donate=True``): the dense and VLM
+families update it in place.
 
 Every tick is recorded in the batcher's ``spans`` (an in-memory
 ``repro_torch.obs.hotpath.SpanRing``, always on: a few microseconds a tick)
@@ -136,9 +138,11 @@ class ContinuousBatcher:
                 torch.from_numpy(pos).to(self.device))
 
     def _decode(self, toks, pos):
+        # the batcher owns its cache and rebinds it every tick, so it donates
+        # it: the dense and VLM steps write the tick's K/V in place
         with torch.inference_mode():
             return api.decode_step(self.params, self.cfg, self.cache, toks, pos,
-                                   use_kernel=self.use_kernel)
+                                   use_kernel=self.use_kernel, donate=True)
 
     def _commit(self, nxt) -> int:
         """Advance every occupied slot by the tick whose next tokens are

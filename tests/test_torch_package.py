@@ -85,12 +85,14 @@ def test_chip_smoke_alone_fails(tmp_path):
     assert '"ok": true' not in r.stdout
 
 
-KERNELS = ["conv2d", "matmul", "rmsnorm", "flash_attention", "ssd"]
+KERNELS = ["conv2d", "matmul", "rmsnorm", "flash_attention", "ssd"]  # each a Pallas kernel's
+# decode attention on a cache updated in place: plain array code in the JAX package
+NEW_KERNELS = ["decode_attention"]
 
 
 def test_every_kernel_is_built_from_its_source():
     from repro_torch.kernels import _build
-    assert sorted(_build.sources()) == sorted(KERNELS)
+    assert sorted(_build.sources()) == sorted(KERNELS + NEW_KERNELS)
 
 
 def test_shared_header_is_in_every_kernel_target(tmp_path, monkeypatch):
@@ -128,6 +130,22 @@ def test_kernel_wrapper_counts_launches(name):
     import importlib
     ops = importlib.import_module(f"repro_torch.kernels.{name}.ops")
     assert isinstance(getattr(ops, name).launches, int)
+
+
+def test_decode_attention_source_carries_its_note():
+    """The decode-attention kernels replace no TPU kernel: the note names the
+    plain code they replace, what bounds them and what the design does."""
+    text = (PORT / "kernels" / "decode_attention" / "csrc" / "decode_attention.cu").read_text()
+    assert "Replaces no TPU kernel" in text and "layers.py::gqa_decode_attention" in text
+    assert "What bounds it on the H100" in text and "What the design does about it" in text
+    assert "cudaGetLastError" in text
+
+
+def test_decode_attention_wrappers_count_launches():
+    from repro_torch.kernels.decode_attention import ops
+    assert isinstance(ops.rope_append.launches, int)
+    assert isinstance(ops.decode_attend.launches, int)
+    assert set(ops.decode_attend.launches_by_route) == {"mma", "simt"}
 
 
 @pytest.mark.parametrize("name", sorted(p.name for p in (ROOT / "src" / "repro" / "configs")
